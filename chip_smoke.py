@@ -1,0 +1,568 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (prima_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, from the repository root
+
+Phases, each of which fails the run on any error or mismatch:
+  1. build   — compile every CUDA kernel of the port with nvcc (in parallel).
+  2. kernels — each kernel against its plain PyTorch version on the card at
+               the main path's shapes, timed with CUDA events (median of 20
+               windows after warm-up, operands rotated past the 50 MB L2), beside
+               its bound and the library call that computes the same
+               function, where there is one.
+  3. server  — python -m prima_tpu_torch.server on the trained tiny model:
+               concurrent /completion requests and one chat request; then
+               the Engine's greedy streams on the card (kernels) against
+               the CPU (plain path), in f32.
+  4. full    — the Llama-3-8B shape with Q4_K weights generated on the card:
+               Engine(n_slots=4, max_seq=2048) serves 8 requests through
+               submit + step_fused(max_chunk=8); the kernels' launch counts
+               of this run; one decode step's logits, kernels vs plain.
+
+Output: one line per case and phase, then a {"kernels": [...]} JSON line,
+the card's name and power limit from nvidia-smi, and last
+{"ok": true, "device": {...}}. Without a GPU, or outside the repository,
+it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import http.client
+import json
+import os
+import socket
+import statistics
+import subprocess
+import sys
+import threading
+import time
+from collections import Counter
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LLAMA3_8B = dict(n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+                 n_ff=14336, n_vocab=128256, n_ctx_train=8192, rope_base=500000.0,
+                 rope_dim=128)  # bench.py model_shape("8b")
+GEMV_TOL = 1e-4  # max |kernel - plain| / max |plain|, f32, sums in another order
+LOGITS_TOL = 1e-3  # the same over 32 layers of kernels vs plain
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, args_list: list, reps: int = 20, per_rep: int = 8,
+            warmup: int = 3) -> float:
+    """Median device ms per call of fn(*args) over `reps` CUDA-event
+    windows of `per_rep` calls each, cycling through args_list so each call
+    finds its operands outside the L2 cache. A device-side sleep before
+    each window lets the host queue the window's calls first, so the
+    window times the device, not the Python wrapper."""
+    import torch
+
+    for i in range(warmup):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    times = []
+    j = 0
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
+        a.record()
+        for _ in range(per_rep):
+            fn(*args_list[j % len(args_list)])
+            j += 1
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per_rep)
+    return statistics.median(times)
+
+
+def copies_for(nbytes: int) -> int:
+    return max(1, min(64, -(-2 * L2_BYTES // max(nbytes, 1))))
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def gemv_cases():
+    """(format, shape label, N, K, B list) at the main path's shapes."""
+    from prima_tpu_torch.gguf.constants import GGMLType as T
+
+    e, f, v, kv = 4096, 14336, 128256, 1024
+    big = [("wq/wo", e, e), ("wk/wv", kv, e), ("gate/up", f, e), ("down", e, f),
+           ("head", v, e)]
+    cases = [(t, lab, n, k, (1, 4, 31)) for t in (T.Q4_K, T.Q6_K, T.Q8_0, T.Q4_0, T.Q5_K)
+             for lab, n, k in big]
+    # tiny models: the trained pair (Q8_0, width 256 / 128, head 259) and the
+    # make_tiny_gguf widths (Q4_K grouped at 256, packed at 512)
+    cases += [(T.Q8_0, "tiny-pair qkvo", 256, 256, (1, 4, 8)),
+              (T.Q8_0, "tiny-pair down", 256, 704, (1, 4)),
+              (T.Q8_0, "tiny-pair head", 259, 256, (1, 4)),
+              (T.Q8_0, "tiny-draft gate", 352, 128, (1, 4)),
+              (T.Q4_K, "tiny-256 (grouped)", 512, 256, (1, 4, 16)),
+              (T.Q4_K, "tiny-512 (packed)", 1024, 512, (1, 4))]
+    return cases
+
+
+def gemv_bytes(qt, b: int) -> int:
+    return qt.nbytes + b * qt.n_cols * 4 + b * qt.n_rows * 4
+
+
+def gemv_bound_ms(qt, b: int) -> tuple[float, str]:
+    t_bytes = gemv_bytes(qt, b) / HBM_BYTES_PER_S
+    t_ops = 2.0 * b * qt.n_rows * qt.n_cols / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(dev, report: dict) -> None:
+    import torch
+
+    from prima_tpu_torch.models.llama import synth_qtensor_device
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.quant import qmatmul as qm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    gcases, worst = [], (0.0, 0.0)
+    for t, label, n, k, bs in gemv_cases():
+        qts = [synth_qtensor_device(gen, n, k, t, dev)]
+        qts += [synth_qtensor_device(gen, n, k, t, dev)
+                for _ in range(copies_for(qts[0].nbytes) - 1)]
+        qt = qts[0]
+        for b in bs:
+            x = torch.randn((b, k), generator=gen, device=dev)
+            y = qm.qgemv(x, qt)
+            ref = qm.qmatmul_plain(x, qt)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            ok = err <= GEMV_TOL * scale
+            worst = max(worst, (err, err / scale))
+            ms = time_ms(qm.qgemv, [(x, q) for q in qts])
+            plain = time_ms(qm.qmatmul_plain, [(x, q) for q in qts[:4]], per_rep=2)
+            bound, by = gemv_bound_ms(qt, b)
+            case = {"format": t.name, "shape": label, "N": n, "K": k, "B": b,
+                    "layout": qt.layout, "scales": qm.scale_mode(qt),
+                    "max_abs_err": err, "max_abs_ref": scale, "ms": ms,
+                    "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                    "bytes": gemv_bytes(qt, b)}
+            gcases.append(case)
+            log(f"qgemv {t.name:5s} {label:18s} B={b:<2d} {qm.scale_mode(qt):7s} "
+                f"err {err:.2e}/{scale:.2e} ms {ms:.4f} plain {plain:.4f} "
+                f"bound {bound:.4f} ({by})")
+            if not ok:
+                raise AssertionError(f"qgemv {t.name} {label} B={b}: max |err| {err} "
+                                     f"> {GEMV_TOL} * {scale}")
+        del qts
+        torch.cuda.empty_cache()
+    report["qgemv"]["cases"] = gcases
+    report["qgemv"]["max_abs_err"] = worst[0]
+    report["qgemv"]["max_rel_err"] = worst[1]
+    report["qgemv"]["tolerance"] = f"max|err| <= {GEMV_TOL} * max|plain| (f32)"
+
+    kcases = []
+    for label, b, s, t_, p, dt, pos in [
+            ("8B decode", 4, 1, 2048, 1024, torch.bfloat16, [5, 700, 2047, 1300]),
+            ("8B prefill (slot row)", 1, 128, 2048, 1024, torch.bfloat16, [256]),
+            ("8B prefill 256 (slot row)", 1, 256, 2048, 1024, torch.bfloat16, [0]),
+            ("clamp at T-S", 4, 8, 2048, 1024, torch.bfloat16, [2045, 0, 3000, 17]),
+            ("tiny-pair decode f32", 4, 1, 512, 256, torch.float32, [0, 1, 2, 511]),
+            ("draft decode P=128", 4, 1, 512, 128, torch.bfloat16, [3, 9, 27, 81])]:
+        caches = [torch.randn((b, t_, p), generator=gen, device=dev).to(dt)
+                  for _ in range(copies_for(b * s * p * 2 * 2))]
+        new = torch.randn((b, s, p), generator=gen, device=dev).to(dt)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        want = kvw.kv_write_plain(caches[0].clone(), new, pos_t)
+        got = kvw.kv_write(caches[0].clone(), new, pos_t)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rows = (kvw.write_starts(pos_t, t_, s)[:, None]
+                + torch.arange(s, device=dev)
+                + torch.arange(b, device=dev)[:, None] * t_).reshape(-1)
+        flat_new = new.reshape(b * s, p)
+        ms = time_ms(kvw.kv_write, [(c, new, pos_t) for c in caches])
+        plain = time_ms(kvw.kv_write_plain, [(c, new, pos_t) for c in caches])
+        lib = time_ms(lambda c: c.view(b * t_, p).index_copy_(0, rows, flat_new),
+                      [(c,) for c in caches])
+        nbytes = 2 * new.numel() * new.element_size()
+        case = {"shape": label, "B": b, "S": s, "T": t_, "P": p, "dtype": str(dt),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "bytes": nbytes}
+        kcases.append(case)
+        log(f"kv_write {label:26s} err {err} ms {ms:.4f} plain {plain:.4f} "
+            f"index_copy_ {lib:.4f} bound {case['bound_ms']:.6f}")
+        if err != 0.0:
+            raise AssertionError(f"kv_write {label}: max |err| {err} (must be exact)")
+    report["kv_write"]["cases"] = kcases
+    report["kv_write"]["max_abs_err"] = max(c["max_abs_err"] for c in kcases)
+    report["kv_write"]["tolerance"] = "exact"
+    # headline numbers: the decode launch of the 8B main path
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        report["kv_write"][key] = kcases[0][key]
+    step = [c for c in gcases if c["format"] == "Q4_K" and c["B"] == 4
+            and c["N"] >= 1024 and c["K"] >= 4096]
+    per_step = {"wq/wo": 64, "wk/wv": 64, "gate/up": 64, "down": 32, "head": 1}
+    for key in ("ms", "plain_ms", "bound_ms"):  # one 8B decode step at B = 4
+        report["qgemv"][key] = sum(per_step[c["shape"]] * c[key] for c in step)
+    report["qgemv"]["bound_by"] = "bytes"
+    report["qgemv"]["library_ms"] = None
+    report["qgemv"]["headline"] = ("sum over the 225 GEMV launches of one 8B Q4_K "
+                                   "decode step at B = 4")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the HTTP server on the trained tiny model
+# ---------------------------------------------------------------------------
+
+TINY = os.path.join("models_tiny_pair", "target.gguf")
+PROMPTS = ["The quick brown fox", "Once upon a time", "def main():",
+           "In the beginning was"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post(port: int, path: str, body: dict, timeout: float = 300) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"{path}: HTTP {resp.status} {data[:200]!r}")
+    return json.loads(data)
+
+
+def _get(port: int, path: str) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def phase_server(report: dict) -> None:
+    port = _free_port()
+    proc = subprocess.Popen([sys.executable, "-m", "prima_tpu_torch.server", "-m", TINY,
+                             "--device", "cuda", "--port", str(port)], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out: list[str] = []
+    reader = threading.Thread(target=lambda: out.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        t0 = time.time()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError("server exited:\n" + "".join(out))
+            try:
+                if _get(port, "/health").get("status") == "ok":
+                    break
+            except OSError:
+                pass
+            if time.time() - t0 > 240:
+                raise AssertionError("server did not come up:\n" + "".join(out))
+            time.sleep(0.5)
+        log(f"server up in {time.time() - t0:.1f} s")
+        results: dict = {}
+
+        def one(i, path, body):
+            results[i] = _post(port, path, body)
+
+        body = {"n_predict": 32, "temperature": 0}
+        threads = [threading.Thread(target=one, args=(i, "/completion",
+                                                      dict(body, prompt=p)))
+                   for i, p in enumerate(PROMPTS)]
+        threads.append(threading.Thread(target=one, args=(
+            "chat", "/v1/chat/completions",
+            dict(body, max_tokens=32, messages=[{"role": "user", "content": "Hello"}]))))
+        t0 = time.time()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.time() - t0
+        if len(results) != len(threads):
+            raise AssertionError(f"only {len(results)} of {len(threads)} requests answered")
+        for i in range(len(PROMPTS)):
+            ch = results[i]["choices"][0]
+            if results[i]["usage"]["completion_tokens"] <= 0:
+                raise AssertionError(f"/completion {i} generated nothing")
+            log(f"completion {i}: {ch['text']!r} ({ch['finish_reason']})")
+        msg = results["chat"]["choices"][0]["message"]["content"]
+        log(f"chat: {msg!r}")
+        launches = _get(port, "/props")["kernel_launches"]
+        log("server kernel launches", json.dumps(launches))
+        if not all(n > 0 for n in launches.values()):
+            raise AssertionError(f"server ran without a kernel: {launches}")
+        report["server"] = {"requests": len(threads), "wall_s": wall,
+                            "launches": launches}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def greedy_streams(device: str, impl: str) -> list[list[int]]:
+    """Greedy tokens for PROMPTS on the tiny model, f32 activations and KV,
+    through Engine.submit + step_fused with slot reuse (2 slots, 4 asks)."""
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.models.loader import load_model
+    from prima_tpu_torch.runtime.engine import Engine, SlotState
+
+    m = load_model(TINY, device=device)
+    eng = Engine(m.cfg, m.params, n_slots=2, max_seq=256, n_batch=64, device=device,
+                 opts=ForwardOptions(matmul_impl=impl, dtype=torch.float32),
+                 kv_dtype=torch.float32, eog_ids=m.eog_ids)
+    prompts = [m.tokenizer.encode(p, add_special=True) for p in PROMPTS]
+    out, slots, queue = {}, {}, list(enumerate(prompts))
+    while queue or slots:
+        while queue and eng.find_idle_slot() is not None:
+            i, p = queue.pop(0)
+            slots[i] = eng.submit(p, n_predict=32)
+        eng.step_fused(max_chunk=8)
+        for i, s in list(slots.items()):
+            if s.state == SlotState.IDLE:
+                out[i] = list(s.generated)
+                del slots[i]
+    return [out[i] for i in range(len(prompts))]
+
+
+def phase_tiny_parity(report: dict) -> None:
+    card = greedy_streams("cuda", "kernel")
+    cpu = greedy_streams("cpu", "plain")
+    log("tiny greedy (card, kernels):", card)
+    if card != cpu:
+        raise AssertionError(f"greedy streams differ: card {card} cpu {cpu}")
+    report["tiny_parity"] = {"prompts": len(PROMPTS), "tokens": sum(map(len, card)),
+                             "identical": True}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the 8B shape at full width
+# ---------------------------------------------------------------------------
+
+
+def profile_decode(eng, prompts) -> dict:
+    """Where a decode step's time goes, with all 4 slots decoding: the host
+    wall time of one unprofiled step_fused chunk (8 steps), then the device
+    time by kernel over the next chunk from torch.profiler (CUPTI, CUDA
+    activity only). The idle share sets the second chunk's device time
+    against the first chunk's wall time, so the profiler's own host
+    overhead does not count as idle."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts[:4]:
+        eng.submit(p, n_predict=24)
+    eng.step()  # prefill all four, one host-sampled step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events = eng.step_fused(max_chunk=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = max(Counter(e.slot_id for e in events).values(), default=0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        events = eng.step_fused(max_chunk=8)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    if max(Counter(e.slot_id for e in events).values(), default=0) != steps:
+        raise AssertionError("the profiled chunk ran another number of steps")
+    by_name: Counter = Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    by = {"qgemv": sum(t for n, t in by_name.items() if "qgemv_kernel" in n),
+          "kv_write": sum(t for n, t in by_name.items() if "kv_write_kernel" in n)}
+    by["other"] = sum(by_name.values()) - by["qgemv"] - by["kv_write"]
+    top = [(n[:80], t) for n, t in by_name.most_common(8)]
+    while any(s.state.name != "IDLE" for s in eng.slots):
+        eng.step_fused(max_chunk=8)
+    busy = sum(by.values())
+    if not busy:
+        raise AssertionError("the profiler saw no device time")
+    return {"steps": steps, "wall_ms": wall * 1e3, "profiled_wall_ms": prof_wall * 1e3,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / (wall * 1e3),
+            "device_ms": by, "top_kernels_ms": top}
+
+
+def phase_full(dev, report: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import (ForwardOptions, forward, init_kv_caches,
+                                              synth_params_device)
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.quant import qmatmul as qm
+    from prima_tpu_torch.runtime.engine import Engine, SlotState
+
+    cfg = tiny_config(**LLAMA3_8B)
+    t0 = time.time()
+    params = synth_params_device(cfg, GGMLType.Q4_K, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"8B-shape Q4_K weights ({cfg.n_layers} layers) generated on the card in "
+        f"{time.time() - t0:.1f} s")
+    eng = Engine(cfg, params, n_slots=4, max_seq=2048, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.n_vocab, 128).tolist() for _ in range(8)]
+    # warm-up request (allocator, cuBLAS handles), not counted
+    eng.run_to_completion(prompts[0][:16], n_predict=2)
+    eng.perf = {k: 0 * v for k, v in eng.perf.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    qm.launches.count = 0
+    kvw.launches.count = 0
+    queue, live, done = list(prompts), [], []
+    t0 = time.time()
+    while queue or live:  # the loop EngineWorker._loop runs
+        while queue and eng.find_idle_slot() is not None:
+            live.append(eng.submit(queue.pop(0), n_predict=64))
+        eng.step_fused(max_chunk=8)
+        for s in [s for s in live if s.state == SlotState.IDLE]:
+            done.append(list(s.generated))
+            live.remove(s)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"qgemv": qm.launches.count, "kv_write": kvw.launches.count}
+    if len(done) != 8 or any(len(g) != 64 for g in done):
+        raise AssertionError(f"8B engine finished {len(done)} requests, lengths "
+                             f"{[len(g) for g in done]}")
+    if not all(launches.values()):
+        raise AssertionError(f"8B main path ran without a kernel: {launches}")
+    p = eng.perf
+    full = {"layers": cfg.n_layers, "requests": 8, "prompt_tokens": 128, "gen_tokens": 64,
+            "prefill_tok_s": p["n_prompt"] / p["t_prompt_s"],
+            "decode_tok_s": p["n_decode"] / p["t_decode_s"], "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "launches": launches}
+    log("8B engine", json.dumps(full))
+
+    full["profile"] = profile_decode(eng, prompts)
+    log("8B decode chunk profile", json.dumps(full["profile"]))
+
+    # one decode step's logits, kernels vs plain, f32 on the same weights
+    toks = torch.as_tensor(rng.integers(0, cfg.n_vocab, (4, 1)), device=dev)
+    logits = {}
+    for impl in ("kernel", "plain"):
+        kv = init_kv_caches(cfg, 4, 64, torch.float32, dev)
+        with torch.no_grad():
+            logits[impl], _ = forward(
+                params, cfg, toks, torch.zeros((4, 1), dtype=torch.int32, device=dev), kv,
+                torch.zeros(4, dtype=torch.int32, device=dev),
+                ForwardOptions(matmul_impl=impl, dtype=torch.float32))
+    err = (logits["kernel"] - logits["plain"]).abs().max().item()
+    scale = logits["plain"].abs().max().item()
+    same_argmax = bool((logits["kernel"].argmax(-1) == logits["plain"].argmax(-1)).all())
+    full.update(logits_max_abs_err=err, logits_max_abs=scale, logits_argmax_equal=same_argmax,
+                logits_tolerance=f"max|err| <= {LOGITS_TOL} * max|plain| (f32)")
+    log(f"8B logits kernels vs plain: max |err| {err:.3e} of max |logit| {scale:.3e}, "
+        f"argmax equal {same_argmax}")
+    if not err <= LOGITS_TOL * scale:
+        raise AssertionError("8B logits: kernels disagree with the plain path")
+    report["full"] = full
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="build,kernels,server,full",
+                    help="comma-separated subset of build,kernels,server,full")
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from prima_tpu_torch.ops import kv_write as kvw
+        from prima_tpu_torch.quant import qmatmul as qm
+        from prima_tpu_torch.utils import nvcc
+    except ImportError as e:
+        print(f"chip_smoke: run it from the repository root ({e})", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log("card:", card, "|", torch.cuda.get_device_name(0), "| torch", torch.__version__,
+        "cuda", torch.version.cuda)
+    report = {
+        "qgemv": {"name": "qgemv", "route": "cuda", "source": "prima_tpu_torch/" + qm.SOURCE,
+                  "replaces": "prima_tpu/quant/pallas/qmatmul.py:196 _qmm_kernel"},
+        "kv_write": {"name": "kv_write", "route": "cuda",
+                     "source": "prima_tpu_torch/" + kvw.SOURCE,
+                     "replaces": "prima_tpu/ops/kv_pallas.py:33 _kv_write_kernel"},
+    }
+    t0 = time.time()
+    logs = nvcc.build([qm.SOURCE, kvw.SOURCE])
+    log(f"build: {time.time() - t0:.1f} s")
+    for src, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {src}: {line.strip()}")
+    if "kernels" in phases:
+        t0 = time.time()
+        phase_kernels(dev, report)
+        log(f"kernels: {time.time() - t0:.1f} s")
+    if "server" in phases:
+        t0 = time.time()
+        phase_server(report)
+        phase_tiny_parity(report)
+        log(f"server: {time.time() - t0:.1f} s")
+    launches = {"qgemv": None, "kv_write": None}  # counted only by the main path's run
+    if "full" in phases:
+        t0 = time.time()
+        launches = phase_full(dev, report)
+        log(f"full: {time.time() - t0:.1f} s")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = []
+    for name in ("qgemv", "kv_write"):
+        r = dict(report[name], launches=launches[name])
+        kernels.append({k: r.get(k) for k in keys}
+                       | {k: v for k, v in r.items() if k not in keys})
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "report": report, "kernels": kernels}, f, indent=1)
+    summary = [{k: r[k] for k in keys} for r in kernels]
+    print(json.dumps({"kernels": summary}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -43,6 +43,9 @@ def pytest_configure(config):
         "markers", "slow: >30s multi-process/e2e tests (run with --runslow "
         "or PRIMA_SLOW_TESTS=1; CI runs both tiers, see ci/run.sh)")
     config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (prima_tpu_torch kernels); "
+        "skips without one")
+    config.addinivalue_line(
         "markers", "timeout(seconds): hard wall-clock cap, enforced via "
         "SIGALRM (pytest-timeout is not installed in this image); a hung "
         "multi-process test fails instead of wedging CI")
