@@ -11,13 +11,23 @@ Phases, each of which fails the run on any error or mismatch:
                its bound and the library call that computes the same
                function, where there is one.
   3. server  — python -m prima_tpu_torch.server on the trained tiny model:
-               concurrent /completion requests and one chat request; then
-               the Engine's greedy streams on the card (kernels) against
-               the CPU (plain path), in f32.
+               concurrent /completion requests and one chat request, once
+               with the defaults and once with -ctk q8_0 -gan 2 -gaw 64
+               --slot-save-path (then slot 0 saved and restored into slot
+               1); then the Engine's greedy streams on the card (every
+               kernel) against the CPU (plain path), in f32: the default
+               path, flash attention, flash attention over a q8_0 cache,
+               and flash attention under Self-Extend.
   4. full    — the Llama-3-8B shape with Q4_K weights generated on the card:
                Engine(n_slots=4, max_seq=2048) serves 8 requests through
                submit + step_fused(max_chunk=8); the kernels' launch counts
                of this run; one decode step's logits, kernels vs plain.
+  5. long    — the same weights, Engine(n_slots=4, max_seq=8192,
+               attn_impl="kernel") serves 4 requests of ~4000 prompt tokens
+               and 32 greedy tokens; the launch counts of all four kernels
+               in this run; a decode chunk profiled with flash and with
+               plain attention; one decode step near position 4000 over
+               f32 caches, every kernel against every plain version.
 
 Output: one line per case and phase, then a {"kernels": [...]} JSON line,
 the card's name and power limit from nvidia-smi, and last
@@ -28,6 +38,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import http.client
 import json
 import os
@@ -41,6 +52,7 @@ from collections import Counter
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2 ** 20
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LLAMA3_8B = dict(n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8, head_dim=128,
@@ -48,6 +60,12 @@ LLAMA3_8B = dict(n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8, head_dim=12
                  rope_dim=128)  # bench.py model_shape("8b")
 GEMV_TOL = 1e-4  # max |kernel - plain| / max |plain|, f32, sums in another order
 LOGITS_TOL = 1e-3  # the same over 32 layers of kernels vs plain
+# flash attention against its plain version: f32 max|err| <= 2e-5 *
+# max(1, max|plain|) (sums in another order, the tolerance the JAX package
+# holds its kernel to); bf16 outputs within 1e-2 * max|plain| (one bf16
+# rounding of the output apart)
+ATTN_F32_TOL = 2e-5
+ATTN_BF16_TOL = 1e-2
 
 
 def log(*a) -> None:
@@ -222,6 +240,118 @@ def phase_kernels(dev, report: dict) -> None:
     report["qgemv"]["library_ms"] = None
     report["qgemv"]["headline"] = ("sum over the 225 GEMV launches of one 8B Q4_K "
                                    "decode step at B = 4")
+    phase_attention(dev, report)
+
+
+def attn_visible(pos0: list, s: int, t: int) -> tuple[int, int]:
+    """(query-cell pairs the causal mask lets through per head, cells per
+    KV head read) for contiguous positions pos0[b] + [0, s)."""
+    pairs = sum(min(t, p + i + 1) for p in pos0 for i in range(s))
+    cells = sum(min(t, p + s) for p in pos0)
+    return pairs, cells
+
+
+def attn_bound(q_shape, kvh: int, t: int, pos0: list, esz: int) -> dict:
+    """The least time for this data: the bytes of q, the output and the
+    visible K/V cells once over 3.35 TB/s, against the operations the
+    visible pairs need (4 * D a pair: q.k and p.v) over the peak of the
+    inputs' type (bf16 tensor cores; f32 outside them). The f32 CUDA-core
+    figure is kept beside it, since that is what the kernels run on."""
+    b, s, h, d = q_shape
+    pairs, cells = attn_visible(pos0, s, t)
+    nbytes = 2 * b * s * h * d * esz + 2 * cells * kvh * d * esz
+    flops = 4 * d * h * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if esz == 2 else F32_FLOPS)
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "f32_core_bound_ms": max(t_bytes, flops / F32_FLOPS) * 1e3}
+
+
+def sdpa_call(q, k, v, pos0: list, scale: float):
+    """torch's scaled_dot_product_attention on the same inputs with an
+    explicit boolean mask (timed as the yardstick, never used by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    s, t = q.shape[1], k.shape[1]
+    qpos = (torch.tensor(pos0, device=q.device)[:, None]
+            + torch.arange(s, device=q.device))
+    mask = (torch.arange(t, device=q.device)[None, None, :] <= qpos[:, :, None])[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+
+
+def phase_attention(dev, report: dict) -> None:
+    """flash_decode and flash_prefill against their plain versions."""
+    import torch
+
+    from prima_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, KVH, D, T, dtype, pos0 per batch row); the first
+    # case of each kernel is the long phase's main path
+    cases = {
+        "flash_decode": [
+            ("8B long decode (main path)", 4, 1, 32, 8, 128, 8192, bf16,
+             [4000, 4031, 3990, 4060]),
+            ("8B decode T=8192", 4, 1, 32, 8, 128, 8192, bf16, [5, 1000, 4095, 8191]),
+            ("8B decode S=4", 4, 4, 32, 8, 128, 8192, bf16, [5, 1000, 4092, 8188]),
+            ("8B decode T=2000", 4, 1, 32, 8, 128, 2000, bf16, [5, 700, 1999, 1300]),
+            ("tiny-pair decode f32", 4, 1, 4, 4, 64, 256, f32, [0, 1, 100, 255])],
+        "flash_prefill": [
+            ("8B prefill 256 at 3840 (main path)", 1, 256, 32, 8, 128, 8192, bf16, [3840]),
+            ("8B prefill 256 at 0", 1, 256, 32, 8, 128, 8192, bf16, [0]),
+            ("8B prefill 129 (ragged)", 1, 129, 32, 8, 128, 8192, bf16, [3968]),
+            ("tiny-pair prefill f32", 1, 64, 4, 4, 64, 256, f32, [64])]}
+    for name, rows in cases.items():
+        fn = attn.flash_decode if name == "flash_decode" else attn.flash_prefill
+        plain_fn = attn.flash_decode_plain if name == "flash_decode" else attn.flash_prefill_plain
+        out_cases = []
+        for label, b, s, h, kvh, d, t, dt, pos0 in rows:
+            scale = 1.0 / d ** 0.5
+            q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+            kv_bytes = 2 * b * t * kvh * d * (2 if dt == bf16 else 4)
+            kvs = [tuple(torch.randn((b, t, kvh, d), generator=gen, device=dev).to(dt)
+                         for _ in range(2)) for _ in range(copies_for(kv_bytes))]
+            pos = (torch.tensor(pos0, dtype=torch.int32, device=dev)[:, None]
+                   + torch.arange(s, dtype=torch.int32, device=dev))
+            k, v = kvs[0]
+            got = fn(q, k, v, pos, scale)
+            want = plain_fn(q, k, v, pos, scale)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            tol = ATTN_F32_TOL * max(1.0, ref) if dt == f32 else ATTN_BF16_TOL * ref
+            ms = time_ms(fn, [(q, k_, v_, pos, scale) for k_, v_ in kvs])
+            plain = time_ms(plain_fn, [(q, k_, v_, pos, scale) for k_, v_ in kvs[:2]],
+                            reps=5, per_rep=2)
+            lib = time_ms(lambda f: f(), [(sdpa_call(q, k_, v_, pos0, scale),)
+                                          for k_, v_ in kvs[:4]], reps=10, per_rep=4)
+            case = {"shape": label, "B": b, "S": s, "H": h, "KVH": kvh, "D": d, "T": t,
+                    "dtype": str(dt), "pos0": pos0, "max_abs_err": err, "max_abs_ref": ref,
+                    "tolerance": tol, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    **attn_bound(q.shape, kvh, t, pos0, q.element_size())}
+            out_cases.append(case)
+            log(f"{name} {label:36s} err {err:.2e}/{ref:.2e} ms {ms:.4f} plain {plain:.4f} "
+                f"sdpa {lib:.4f} bound {case['bound_ms']:.4f} ({case['bound_by']}; "
+                f"f32 cores {case['f32_core_bound_ms']:.4f})")
+            if not err <= tol:
+                raise AssertionError(f"{name} {label}: max |err| {err} > {tol}")
+            del kvs, k, v
+            torch.cuda.empty_cache()
+        r = report[name]
+        r["cases"] = out_cases
+        r["max_abs_err"] = max(c["max_abs_err"] for c in out_cases)
+        r["tolerance"] = (f"f32: max|err| <= {ATTN_F32_TOL} * max(1, max|plain|); bf16: "
+                          f"max|err| <= {ATTN_BF16_TOL} * max|plain|")
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "f32_core_bound_ms", "bytes", "flops"):
+            r[key] = out_cases[0][key]
+        r["headline"] = out_cases[0]["shape"]
 
 
 # ---------------------------------------------------------------------------
@@ -262,10 +392,13 @@ def _get(port: int, path: str) -> dict:
         conn.close()
 
 
-def phase_server(report: dict) -> None:
+def _server(extra: list[str], report: dict, key: str, slots: bool = False) -> None:
+    """Start the server on the tiny model with `extra` flags, answer the
+    concurrent requests (and save slot 0 and restore it into slot 1 when
+    `slots`), check that the default path's kernels ran, stop it."""
     port = _free_port()
     proc = subprocess.Popen([sys.executable, "-m", "prima_tpu_torch.server", "-m", TINY,
-                             "--device", "cuda", "--port", str(port)], cwd=ROOT,
+                             "--device", "cuda", "--port", str(port), *extra], cwd=ROOT,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     out: list[str] = []
     reader = threading.Thread(target=lambda: out.extend(proc.stdout), daemon=True)
@@ -283,7 +416,7 @@ def phase_server(report: dict) -> None:
             if time.time() - t0 > 240:
                 raise AssertionError("server did not come up:\n" + "".join(out))
             time.sleep(0.5)
-        log(f"server up in {time.time() - t0:.1f} s")
+        log(f"server {' '.join(extra) or '(defaults)'} up in {time.time() - t0:.1f} s")
         results: dict = {}
 
         def one(i, path, body):
@@ -313,10 +446,20 @@ def phase_server(report: dict) -> None:
         log(f"chat: {msg!r}")
         launches = _get(port, "/props")["kernel_launches"]
         log("server kernel launches", json.dumps(launches))
-        if not all(n > 0 for n in launches.values()):
+        # the server's default path runs the GEMV and the KV write; flash
+        # attention is opt-in (ForwardOptions.attn_impl), as in the JAX package
+        if not (launches["qgemv"] > 0 and launches["kv_write"] > 0):
             raise AssertionError(f"server ran without a kernel: {launches}")
-        report["server"] = {"requests": len(threads), "wall_s": wall,
-                            "launches": launches}
+        report[key] = {"flags": extra, "requests": len(threads), "wall_s": wall,
+                       "launches": launches}
+        if slots:
+            saved = _post(port, "/slots/0?action=save", {"filename": "slot0.bin"})
+            restored = _post(port, "/slots/1?action=restore", {"filename": "slot0.bin"})
+            log(f"slot 0 saved ({saved['n_saved']} tokens) and restored into slot 1 "
+                f"({restored['n_restored']})")
+            if not 0 < saved["n_saved"] == restored["n_restored"]:
+                raise AssertionError(f"slot save/restore: {saved} {restored}")
+            report[key]["slot_tokens"] = saved["n_saved"]
     finally:
         proc.terminate()
         try:
@@ -326,7 +469,27 @@ def phase_server(report: dict) -> None:
             proc.wait()
 
 
-def greedy_streams(device: str, impl: str) -> list[list[int]]:
+def phase_server(report: dict) -> None:
+    _server([], report, "server")
+    slot_dir = os.path.join(ROOT, "build", "chip_smoke_slots")
+    os.makedirs(slot_dir, exist_ok=True)
+    _server(["-ctk", "q8_0", "-gan", "2", "-gaw", "64", "--slot-save-path", slot_dir],
+            report, "server_long_context", slots=True)
+
+
+# the tiny-parity variants: (name, ForwardOptions.attn_impl on the card,
+# Engine keyword arguments, prompt repeats); the CPU runs the same with
+# attn_impl "plain" and matmul_impl "plain"
+PARITY = [("default", "plain", {}, 1),
+          ("flash attention", "kernel", {}, 1),
+          ("flash attention, q8_0 cache", "kernel", {"kv_dtype": "q8_0"}, 1),
+          # ~150-token prompts cross the ga boundaries at 64 and 96
+          ("flash attention, Self-Extend 2/64", "kernel",
+           {"grp_attn_n": 2, "grp_attn_w": 64}, 8)]
+
+
+def greedy_streams(device: str, impl: str, attn_impl: str = "plain", repeat: int = 1,
+                   **engine_kw) -> list[list[int]]:
     """Greedy tokens for PROMPTS on the tiny model, f32 activations and KV,
     through Engine.submit + step_fused with slot reuse (2 slots, 4 asks)."""
     import torch
@@ -336,10 +499,12 @@ def greedy_streams(device: str, impl: str) -> list[list[int]]:
     from prima_tpu_torch.runtime.engine import Engine, SlotState
 
     m = load_model(TINY, device=device)
+    engine_kw.setdefault("kv_dtype", torch.float32)
     eng = Engine(m.cfg, m.params, n_slots=2, max_seq=256, n_batch=64, device=device,
-                 opts=ForwardOptions(matmul_impl=impl, dtype=torch.float32),
-                 kv_dtype=torch.float32, eog_ids=m.eog_ids)
-    prompts = [m.tokenizer.encode(p, add_special=True) for p in PROMPTS]
+                 opts=ForwardOptions(matmul_impl=impl, attn_impl=attn_impl,
+                                     dtype=torch.float32),
+                 eog_ids=m.eog_ids, **engine_kw)
+    prompts = [m.tokenizer.encode(p * repeat, add_special=True) for p in PROMPTS]
     out, slots, queue = {}, {}, list(enumerate(prompts))
     while queue or slots:
         while queue and eng.find_idle_slot() is not None:
@@ -354,13 +519,22 @@ def greedy_streams(device: str, impl: str) -> list[list[int]]:
 
 
 def phase_tiny_parity(report: dict) -> None:
-    card = greedy_streams("cuda", "kernel")
-    cpu = greedy_streams("cpu", "plain")
-    log("tiny greedy (card, kernels):", card)
-    if card != cpu:
-        raise AssertionError(f"greedy streams differ: card {card} cpu {cpu}")
-    report["tiny_parity"] = {"prompts": len(PROMPTS), "tokens": sum(map(len, card)),
-                             "identical": True}
+    from prima_tpu_torch.ops import attention as attn
+
+    report["tiny_parity"] = {}
+    for name, attn_impl, kw, repeat in PARITY:
+        before = attn.decode_launches.count + attn.prefill_launches.count
+        card = greedy_streams("cuda", "kernel", attn_impl, repeat, **kw)
+        flash = attn.decode_launches.count + attn.prefill_launches.count - before
+        cpu = greedy_streams("cpu", "plain", "plain", repeat, **kw)
+        log(f"tiny greedy, {name} (card, kernels; {flash} flash launches):", card)
+        if card != cpu:
+            raise AssertionError(f"greedy streams differ ({name}): card {card} cpu {cpu}")
+        if (attn_impl == "kernel") != (flash > 0):
+            raise AssertionError(f"{name}: {flash} flash attention launches")
+        report["tiny_parity"][name] = {"prompts": len(PROMPTS),
+                                       "tokens": sum(map(len, card)),
+                                       "flash_launches": flash, "identical": True}
 
 
 # ---------------------------------------------------------------------------
@@ -399,9 +573,12 @@ def profile_decode(eng, prompts) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    by = {"qgemv": sum(t for n, t in by_name.items() if "qgemv_kernel" in n),
-          "kv_write": sum(t for n, t in by_name.items() if "kv_write_kernel" in n)}
-    by["other"] = sum(by_name.values()) - by["qgemv"] - by["kv_write"]
+    names = {"qgemv": ("qgemv_kernel",), "kv_write": ("kv_write_kernel",),
+             "flash_decode": ("decode_split", "decode_combine"),
+             "flash_prefill": ("prefill_kernel",)}
+    by = {k: sum(t for n, t in by_name.items() if any(m in n for m in ms))
+          for k, ms in names.items()}
+    by["other"] = sum(by_name.values()) - sum(by.values())
     top = [(n[:80], t) for n, t in by_name.most_common(8)]
     while any(s.state.name != "IDLE" for s in eng.slots):
         eng.step_fused(max_chunk=8)
@@ -413,17 +590,13 @@ def profile_decode(eng, prompts) -> dict:
             "device_ms": by, "top_kernels_ms": top}
 
 
-def phase_full(dev, report: dict) -> dict:
-    import numpy as np
+def weights_8b(dev):
+    """The Llama-3-8B shape with Q4_K weights generated on the card."""
     import torch
 
     from prima_tpu_torch.gguf.constants import GGMLType
     from prima_tpu_torch.models.config import tiny_config
-    from prima_tpu_torch.models.llama import (ForwardOptions, forward, init_kv_caches,
-                                              synth_params_device)
-    from prima_tpu_torch.ops import kv_write as kvw
-    from prima_tpu_torch.quant import qmatmul as qm
-    from prima_tpu_torch.runtime.engine import Engine, SlotState
+    from prima_tpu_torch.models.llama import synth_params_device
 
     cfg = tiny_config(**LLAMA3_8B)
     t0 = time.time()
@@ -431,6 +604,32 @@ def phase_full(dev, report: dict) -> dict:
     torch.cuda.synchronize()
     log(f"8B-shape Q4_K weights ({cfg.n_layers} layers) generated on the card in "
         f"{time.time() - t0:.1f} s")
+    return cfg, params
+
+
+def check_logits(report: dict, logits: dict, what: str) -> None:
+    """Kernels against plain over one decode step's f32 logits."""
+    err = (logits["kernel"] - logits["plain"]).abs().max().item()
+    scale = logits["plain"].abs().max().item()
+    same_argmax = bool((logits["kernel"].argmax(-1) == logits["plain"].argmax(-1)).all())
+    report.update(logits_max_abs_err=err, logits_max_abs=scale,
+                  logits_argmax_equal=same_argmax,
+                  logits_tolerance=f"max|err| <= {LOGITS_TOL} * max|plain| (f32)")
+    log(f"{what} logits kernels vs plain: max |err| {err:.3e} of max |logit| {scale:.3e}, "
+        f"argmax equal {same_argmax}")
+    if not (err <= LOGITS_TOL * scale and same_argmax):
+        raise AssertionError(f"{what} logits: kernels disagree with the plain path")
+
+
+def phase_full(dev, report: dict, cfg, params) -> dict:
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.quant import qmatmul as qm
+    from prima_tpu_torch.runtime.engine import Engine, SlotState
+
     eng = Engine(cfg, params, n_slots=4, max_seq=2048, device=dev)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.n_vocab, 128).tolist() for _ in range(8)]
@@ -479,23 +678,97 @@ def phase_full(dev, report: dict) -> dict:
                 params, cfg, toks, torch.zeros((4, 1), dtype=torch.int32, device=dev), kv,
                 torch.zeros(4, dtype=torch.int32, device=dev),
                 ForwardOptions(matmul_impl=impl, dtype=torch.float32))
-    err = (logits["kernel"] - logits["plain"]).abs().max().item()
-    scale = logits["plain"].abs().max().item()
-    same_argmax = bool((logits["kernel"].argmax(-1) == logits["plain"].argmax(-1)).all())
-    full.update(logits_max_abs_err=err, logits_max_abs=scale, logits_argmax_equal=same_argmax,
-                logits_tolerance=f"max|err| <= {LOGITS_TOL} * max|plain| (f32)")
-    log(f"8B logits kernels vs plain: max |err| {err:.3e} of max |logit| {scale:.3e}, "
-        f"argmax equal {same_argmax}")
-    if not err <= LOGITS_TOL * scale:
-        raise AssertionError("8B logits: kernels disagree with the plain path")
+    check_logits(full, logits, "8B")
     report["full"] = full
+    return launches
+
+
+def phase_long(dev, report: dict, cfg, params) -> dict:
+    """Long-context serving at full width through flash attention."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+    from prima_tpu_torch.ops import attention as attn
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.quant import qmatmul as qm
+    from prima_tpu_torch.runtime.engine import Engine, SlotState
+
+    counters = {"qgemv": qm.launches, "kv_write": kvw.launches,
+                "flash_decode": attn.decode_launches, "flash_prefill": attn.prefill_launches}
+    eng = Engine(cfg, params, n_slots=4, max_seq=8192, device=dev,
+                 opts=ForwardOptions(attn_impl="kernel"))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.n_vocab, int(n)).tolist()
+               for n in rng.integers(3900, 4100, 4)]
+    eng.run_to_completion(prompts[0][:16], n_predict=2)  # warm-up, not counted
+    eng.perf = {k: 0 * v for k, v in eng.perf.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.count = 0
+    live, done = [eng.submit(p, n_predict=32) for p in prompts], []
+    t0 = time.time()
+    while live:  # the loop EngineWorker._loop runs
+        eng.step_fused(max_chunk=8)
+        for s in [s for s in live if s.state == SlotState.IDLE]:
+            done.append(list(s.generated))
+            live.remove(s)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    if len(done) != 4 or any(len(g) != 32 for g in done):
+        raise AssertionError(f"long engine finished {len(done)} requests, lengths "
+                             f"{[len(g) for g in done]}")
+    if not all(launches.values()):
+        raise AssertionError(f"long-context path ran without a kernel: {launches}")
+    p = eng.perf
+    long = {"layers": cfg.n_layers, "requests": 4, "max_seq": 8192,
+            "prompt_tokens": [len(x) for x in prompts], "gen_tokens": 32,
+            "prefill_tok_s": p["n_prompt"] / p["t_prompt_s"],
+            "decode_tok_s": p["n_decode"] / p["t_decode_s"], "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "launches": launches}
+    log("8B long-context engine", json.dumps(long))
+    # the same prompts again reuse their cached prefixes: a decode chunk
+    # near position 4000 without a second prefill
+    long["profile"] = profile_decode(eng, prompts)
+    log("8B long decode chunk profile", json.dumps(long["profile"]))
+    # the same chunk with the plain attention, for what the flash path
+    # saves end to end
+    eng.opts = dataclasses.replace(eng.opts, attn_impl="plain")
+    long["profile_plain_attention"] = profile_decode(eng, prompts)
+    log("8B long decode chunk profile, plain attention",
+        json.dumps(long["profile_plain_attention"]))
+    del eng
+    torch.cuda.empty_cache()
+
+    # one decode step near position 4000 over f32 caches of seeded values,
+    # every kernel against every plain version
+    pos0 = [4000, 4031, 3990, 4060]
+    kv = init_kv_caches(cfg, 4, 4096, torch.float32, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    for k, v in kv:
+        k.normal_(generator=gen)
+        v.normal_(generator=gen)
+    toks = torch.as_tensor(rng.integers(0, cfg.n_vocab, (4, 1)), device=dev)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=dev)
+    logits = {}
+    for impl in ("kernel", "plain"):
+        with torch.no_grad():
+            logits[impl], _ = forward(
+                params, cfg, toks, pos[:, None], kv, pos,
+                ForwardOptions(matmul_impl=impl, attn_impl=impl, dtype=torch.float32))
+    check_logits(long, logits, "8B long-context step")
+    report["long"] = long
     return launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,server,full",
-                    help="comma-separated subset of build,kernels,server,full")
+    ap.add_argument("--phases", default="build,kernels,server,full,long",
+                    help="comma-separated subset of build,kernels,server,full,long")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -505,6 +778,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
+        from prima_tpu_torch.ops import attention as attn
         from prima_tpu_torch.ops import kv_write as kvw
         from prima_tpu_torch.quant import qmatmul as qm
         from prima_tpu_torch.utils import nvcc
@@ -523,9 +797,15 @@ def main() -> int:
         "kv_write": {"name": "kv_write", "route": "cuda",
                      "source": "prima_tpu_torch/" + kvw.SOURCE,
                      "replaces": "prima_tpu/ops/kv_pallas.py:33 _kv_write_kernel"},
+        "flash_decode": {"name": "flash_decode", "route": "cuda",
+                         "source": "prima_tpu_torch/" + attn.DECODE_SOURCE,
+                         "replaces": "prima_tpu/ops/attention_pallas.py:148 _decode_kernel"},
+        "flash_prefill": {"name": "flash_prefill", "route": "cuda",
+                          "source": "prima_tpu_torch/" + attn.PREFILL_SOURCE,
+                          "replaces": "prima_tpu/ops/attention_pallas.py:32 _attn_kernel"},
     }
     t0 = time.time()
-    logs = nvcc.build([qm.SOURCE, kvw.SOURCE])
+    logs = nvcc.build([qm.SOURCE, kvw.SOURCE, attn.DECODE_SOURCE, attn.PREFILL_SOURCE])
     log(f"build: {time.time() - t0:.1f} s")
     for src, text in logs.items():
         for line in text.splitlines():
@@ -540,15 +820,23 @@ def main() -> int:
         phase_server(report)
         phase_tiny_parity(report)
         log(f"server: {time.time() - t0:.1f} s")
-    launches = {"qgemv": None, "kv_write": None}  # counted only by the main path's run
+    # launches are counted only by the main path's run: the long phase,
+    # which runs all four kernels
+    launches = dict.fromkeys(("qgemv", "kv_write", "flash_decode", "flash_prefill"))
+    if phases & {"full", "long"}:
+        cfg, params = weights_8b(dev)
     if "full" in phases:
         t0 = time.time()
-        launches = phase_full(dev, report)
+        phase_full(dev, report, cfg, params)
         log(f"full: {time.time() - t0:.1f} s")
+    if "long" in phases:
+        t0 = time.time()
+        launches = phase_long(dev, report, cfg, params)
+        log(f"long: {time.time() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name in ("qgemv", "kv_write"):
+    for name in launches:
         r = dict(report[name], launches=launches[name])
         kernels.append({k: r.get(k) for k in keys}
                        | {k: v for k, v in r.items() if k not in keys})

@@ -1,10 +1,11 @@
 """Llama / Qwen2 decoder: GGUF weight loading and the forward pass.
 
 Counterpart of prima_tpu/models/llama.py. Parameters are a dict of tensors
-and QTensors on one device; KV caches are tensors written in place (the
-JAX forward returns updated copies instead). This slice ports the dense
-llama / qwen2 path: arch flags of other families raise NotImplementedError
-instead of being ignored.
+and QTensors on one device; KV caches are tensors (or KVQ8 / KVQ4) written
+in place (the JAX forward returns updated copies instead). Attention takes
+the plain `gqa_attention` or, with attn_impl="kernel", the flash kernels.
+This slice ports the dense llama / qwen2 path: arch flags of other
+families raise NotImplementedError instead of being ignored.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 
 from ..gguf.constants import GGMLType, TYPE_TRAITS
 from ..gguf.reader import GGUFModel, TensorInfo
-from ..ops.kvquant import update_kv
+from ..ops.attention import flash_attention
+from ..ops.kvquant import KVQ4, KVQ8, update_kv
 from ..ops.layers import (apply_rope, causal_mask, gated_act, gqa_attention,
                           rms_norm, rope_freqs)
 from ..quant.dequant_np import dequantize_tensor
@@ -265,6 +267,7 @@ def synth_params_device(cfg: ModelConfig, ggml_type: GGMLType = GGMLType.Q4_K,
 @dataclass(frozen=True)
 class ForwardOptions:
     matmul_impl: str = "kernel"  # "plain" = dequantize + torch.matmul
+    attn_impl: str = "plain"  # "kernel" = the flash attention kernels
     dtype: torch.dtype = torch.bfloat16
     logits_dtype: torch.dtype = torch.float32
 
@@ -292,12 +295,24 @@ def _check_arch(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.arch} scale factors are not ported yet")
 
 
+def _flash_route(cfg: ModelConfig, opts: ForwardOptions) -> bool:
+    """attn_impl "kernel" takes the flash kernels, except for the attention
+    variants they do not compute (as llama.py:962-963 of the JAX package)."""
+    if opts.attn_impl not in ("plain", "kernel"):
+        raise ValueError(f"unknown attn_impl {opts.attn_impl!r}")
+    return (opts.attn_impl == "kernel" and not cfg.attn_logit_softcap
+            and not cfg.swa_window and not cfg.alibi_max_bias)
+
+
 def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, kv: tuple, cache_pos: torch.Tensor,
-                    mask: torch.Tensor, inv_freq: torch.Tensor, mscale: float,
-                    opts: ForwardOptions) -> torch.Tensor:
+                    mask: torch.Tensor | None, inv_freq: torch.Tensor, mscale: float,
+                    opts: ForwardOptions,
+                    mask_pos: torch.Tensor | None = None) -> torch.Tensor:
     """x (b, s, e) normed input. Writes this step's K/V into the caches in
-    place and returns the attention output (b, s, e)."""
+    place and returns the attention output (b, s, e). Visibility follows
+    mask_pos (the physical cache order) where given, else positions; the
+    two differ only under Self-Extend."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if layer.get("wqkv") is not None:
@@ -316,7 +331,12 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     update_kv(k_cache, k, cache_pos)
     update_kv(v_cache, v, cache_pos)
     scale = cfg.attn_scale or 1.0 / np.sqrt(hd)
-    out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, scale)
+    if _flash_route(cfg, opts):
+        mp = positions if mask_pos is None else mask_pos
+        out = flash_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                              mp.to(torch.int32), scale)
+    else:
+        out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, scale)
     return linear(out.reshape(b, s, h * hd), layer["wo"], opts.matmul_impl)
 
 
@@ -331,10 +351,11 @@ def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions,
 
 
 def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
-                 cache_pos, mask, inv_freq, mscale, opts: ForwardOptions):
+                 cache_pos, mask, inv_freq, mscale, opts: ForwardOptions,
+                 mask_pos=None):
     attn_in = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
     x = x + attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
-                            inv_freq, mscale, opts)
+                            inv_freq, mscale, opts, mask_pos)
     ffn_in = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
     return x + ffn_block(layer, ffn_in, opts, cfg.act)
 
@@ -351,10 +372,12 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed(params["tok_embd"], tokens, opts.dtype)
     inv_freq, mscale = rope_freqs(cfg, x.device)
     t_cache = kv_caches[0][0].shape[1]
-    mask = causal_mask(positions if mask_positions is None else mask_positions, t_cache)
+    # the flash kernels derive visibility from the positions themselves
+    mask = None if _flash_route(cfg, opts) else causal_mask(
+        positions if mask_positions is None else mask_positions, t_cache)
     for layer, kv in zip(params["layers"], kv_caches):
         x = decode_layer(layer, cfg, x, positions, kv, cache_pos, mask, inv_freq,
-                         mscale, opts)
+                         mscale, opts, mask_positions)
     if return_hidden:
         return x, kv_caches
     x = rms_norm(x, params["output_norm"], cfg.rms_eps)
@@ -364,10 +387,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int,
                    dtype=torch.bfloat16, device=None) -> list:
-    """Per-layer (k, v) zero buffers (batch, max_seq, n_kv, head_dim)."""
-    if not isinstance(dtype, torch.dtype):
-        raise NotImplementedError(f"KV cache type {dtype!r} is not ported yet")
+    """Per-layer (k, v) zero buffers (batch, max_seq, n_kv, head_dim): dense
+    tensors of a torch dtype, or KVQ8 / KVQ4 for "q8_0" / "q4_0"."""
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    if isinstance(dtype, str):
+        cls = {"q8_0": KVQ8, "q4_0": KVQ4}.get(dtype)
+        if cls is None:
+            raise ValueError(f"unknown KV cache type {dtype!r}")
+        return [(cls.zeros(shape, device), cls.zeros(shape, device))
+                for _ in range(cfg.n_layers)]
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.n_layers)]

@@ -1,0 +1,191 @@
+"""Flash attention over the KV cache (GQA, causal): the CUDA kernels and
+their plain versions.
+
+Counterpart of prima_tpu/ops/attention_pallas.py. Queries are (B, S, H, D),
+the caches (B, T, KVH, D) in their natural layout, positions (B, S). The
+GQA group folds into rows (row = g * S + s per KV head) and row r of batch
+row b sees cell c iff c <= positions[b, 0] + r % S, as the TPU kernels
+compute it. Scores, softmax and P.V run in f32 (unlike `gqa_attention`,
+which casts the probabilities to v's dtype); the output is in q's dtype.
+Positions must be >= 0: cell 0 is then visible to every row.
+
+Kernel notes.
+- `flash_decode` launches ops/cuda/flash_decode.cu, which replaces
+  prima_tpu/ops/attention_pallas.py:_decode_kernel (entry flash_decode).
+  It is bound by the bytes of the visible K/V cells. Its design splits the
+  T axis over blocks (split-K flash-decoding) so that B * KVH = 32 at the
+  8B shape still fills the card, reads the positions on the device (no
+  host sync) and skips every chunk past the last visible cell; a second
+  small kernel merges the chunks.
+- `flash_prefill` launches ops/cuda/flash_attn.cu, which replaces
+  prima_tpu/ops/attention_pallas.py:_attn_kernel (entry flash_attention,
+  s_q > 8). At prefill it is bound by operations, which it runs as f32
+  FMAs on the CUDA cores from shared-memory tiles; it reads the cache's
+  natural layout through its strides (no transpose copy) and stops at each
+  row tile's last visible cell.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils import nvcc
+
+NEG_INF = -1e30
+DECODE_SOURCE = "ops/cuda/flash_decode.cu"
+PREFILL_SOURCE = "ops/cuda/flash_attn.cu"
+SPLIT = 256  # KV cells per split-K chunk of flash_decode
+decode_launches = nvcc.LaunchCounter("flash_decode")
+prefill_launches = nvcc.LaunchCounter("flash_prefill")
+
+
+def decode_kv_blk(t: int) -> int:
+    """The TPU decode kernel's KV block: min(T, 256), halved until it
+    divides T. Only cells below clip(ceil((pos_last + 1) / kv_blk), 1,
+    T / kv_blk) * kv_blk are read."""
+    kv_blk = min(t, 256)
+    while t % kv_blk:
+        kv_blk //= 2
+    return kv_blk
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            positions: torch.Tensor, scale: float,
+            limit: torch.Tensor | None) -> torch.Tensor:
+    """Plain f32 attention with the kernels' visibility rule. Cells at or
+    past limit (B,) are not read at all; visible cells follow
+    c <= pos0 + s and masked ones score -1e30, as in the TPU kernels."""
+    b, s_q, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s_q, n_kv, h // n_kv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    cols = torch.arange(t, device=q.device)
+    qpos = positions[:, :1].long() + torch.arange(s_q, device=q.device)  # (b, s)
+    visible = cols[None, None, :] <= qpos[:, :, None]  # (b, s, t)
+    scores = torch.where(visible[:, None, None], scores, NEG_INF)
+    if limit is not None:
+        inside = cols[None, :] < limit[:, None]  # (b, t)
+        scores = torch.where(inside[:, None, None, None, :], scores, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(b, s_q, h, d).to(q.dtype)
+
+
+def flash_decode_plain(q, k, v, positions, scale: float) -> torch.Tensor:
+    """What _decode_kernel computes, in plain PyTorch (reads all of T, then
+    drops the cells the kernel does not read)."""
+    t = k.shape[1]
+    kv_blk = decode_kv_blk(t)
+    nblk = ((positions[:, -1].long() + kv_blk) // kv_blk).clamp(1, t // kv_blk)
+    return _attend(q, k, v, positions, scale, nblk * kv_blk)
+
+
+def flash_prefill_plain(q, k, v, positions, scale: float) -> torch.Tensor:
+    """What _attn_kernel computes, in plain PyTorch."""
+    return _attend(q, k, v, positions, scale, None)
+
+
+def _check(q, k, v, positions, name: str) -> None:
+    if not (q.device == k.device == v.device == positions.device):
+        raise ValueError(f"{name}: q, k, v and positions must share a device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k and v must all be float32 or all bfloat16 "
+                         f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: q (B, S, H, D), k and v (B, T, KVH, D)")
+    b, s, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} against k {tuple(k.shape)}")
+    if d not in (64, 128):
+        raise ValueError(f"{name}: head_dim {d} (the kernel takes 64 or 128)")
+    if not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous")
+    esz = q.element_size()
+    for x in (k, v):
+        if x.stride(3) != 1 or x.stride(2) != d:
+            raise ValueError(f"{name}: each cache cell (KVH, D) must be contiguous")
+        if x.data_ptr() % 16 or (x.stride(0) * esz) % 16 or (x.stride(1) * esz) % 16:
+            raise ValueError(f"{name}: cache rows must be 16-byte aligned")
+    if positions.dtype != torch.int32 or positions.shape != (b, s) \
+            or not positions.is_contiguous():
+        raise ValueError(f"{name}: positions must be a contiguous (B, S) int32 tensor")
+
+
+def _decode_lib():
+    fn = nvcc.load(DECODE_SOURCE).prima_flash_decode
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _prefill_lib():
+    fn = nvcc.load(PREFILL_SOURCE).prima_flash_prefill
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor, scale: float) -> torch.Tensor:
+    """Decode attention (s_q <= 8) reading only the visible KV prefix.
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    `flash_decode_plain`."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, positions, scale)
+    _check(q, k, v, positions, "flash_decode")
+    b, s, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    rows = (h // n_kv) * s
+    n_split = -(-t // SPLIT)
+    out = torch.empty_like(q)
+    part_acc = torch.empty((b * n_kv, n_split, rows, d), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b * n_kv, n_split, rows, 2), dtype=torch.float32,
+                          device=q.device)
+    rc = _decode_lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), int(q.dtype == torch.bfloat16), d, b,
+        s, h, n_kv, t, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        decode_kv_blk(t), SPLIT, n_split, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    nvcc.check(rc, "flash_decode launch")
+    decode_launches.count += 1
+    return out
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, scale: float) -> torch.Tensor:
+    """Prefill attention (any s_q). CUDA tensors launch the kernel (or
+    raise); CPU tensors take `flash_prefill_plain`."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, positions, scale)
+    _check(q, k, v, positions, "flash_prefill")
+    b, s, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    rc = _prefill_lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), d, b, s, h, n_kv, t, k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    nvcc.check(rc, "flash_prefill launch")
+    prefill_launches.count += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    positions: torch.Tensor, scale: float) -> torch.Tensor:
+    """Causal GQA attention from absolute positions: s_q <= 8 goes to
+    `flash_decode`, longer chunks to `flash_prefill` (attention_pallas.py
+    flash_attention)."""
+    if q.shape[1] <= 8:
+        return flash_decode(q, k, v, positions, scale)
+    return flash_prefill(q, k, v, positions, scale)

@@ -1,16 +1,19 @@
 """Continuous-batching inference engine (single device).
 
-Counterpart of prima_tpu/runtime/engine.py: N slots share one dense KV
-cache; prompts prefill in bucketed chunks; each step() decodes one token
-for every active slot in one batched forward (inactive rows are parked,
-their writes overwritten before they are ever read).
+Counterpart of prima_tpu/runtime/engine.py: N slots share one KV cache
+(dense, KVQ8 or KVQ4); prompts prefill in chunks of their exact length (the
+JAX engine pads them to power-of-two buckets to bound its recompiles, which
+an eager forward does not need); each step() decodes one token for every
+active slot in one batched forward (inactive rows are parked, their writes
+overwritten before they are ever read). Self-Extend (grp_attn_n > 1)
+compresses the RoPE positions of a slot's cells while visibility keeps
+following the physical cache order.
 
 Uniform decode invariant: prefill ingests prompt[:-1] only; the last
 prompt token always enters through the batched decode step.
 
-Not ported yet: Self-Extend (--grp-attn-n), speculative verification
-and session files. PyTorch runs eagerly, so the JAX engine's scan mode (a
-compile-time device) has no counterpart.
+Not ported yet: speculative verification and forks. PyTorch runs eagerly,
+so the JAX engine's scan mode (a compile-time device) has no counterpart.
 """
 
 from __future__ import annotations
@@ -25,12 +28,43 @@ import torch
 
 from .. import resolve_device
 from ..models.config import ModelConfig
-from ..models.llama import ForwardOptions, forward
+from ..models.llama import ForwardOptions, forward, init_kv_caches
 from ..ops.layers import rms_norm
 from ..sampling import Sampler, SamplerParams, softmax
 from .generate import (MAX_TOPK, FusedGenerator, SlotSampleParams,
                        fused_eligible, sample_one, stable_topk)
 from .kv import KVCache
+
+
+def apply_self_extend(slot, used: int, max_seq: int, ga_n: int, ga_w: int,
+                      rope_shift) -> None:
+    """Self-Extend grouped-attention compression (main.cpp:618-640): once
+    the logical position passes ga_i + ga_w, compress the window's RoPE
+    positions by ga_n. Cells never move (visibility by index holds);
+    `rope_shift(delta)` re-rotates the slot's cached K by the per-cell
+    position delta, and later tokens carry slot.pos_delta as a negative
+    logical-position offset. Mutates slot.{pos_map, ga_i, pos_delta}."""
+    if ga_n <= 1:
+        return
+    if slot.pos_map is None:
+        slot.pos_map = np.arange(max_seq, dtype=np.int64)
+    n_past = used + slot.pos_delta  # logical
+    while n_past >= slot.ga_i + ga_w:
+        ib = (ga_n * slot.ga_i) // ga_w
+        bd = (ga_w // ga_n) * (ga_n - 1)
+        dd = (ga_w // ga_n) - ib * bd - ga_w
+        L = slot.pos_map
+        base = slot.ga_i + ib * bd
+        L1 = np.where((L >= slot.ga_i) & (L < n_past), L + ib * bd, L)
+        L2 = np.where((L1 >= base) & (L1 < base + ga_w), L1 // ga_n, L1)
+        L3 = np.where((L2 >= base + ga_w) & (L2 < n_past + ib * bd), L2 + dd, L2)
+        live = np.arange(max_seq) < used
+        L3 = np.where(live, L3, L)
+        rope_shift((L3 - L).astype(np.int32))
+        slot.pos_map = L3
+        n_past -= bd
+        slot.ga_i += ga_w // ga_n
+    slot.pos_delta = n_past - used
 
 
 class SlotState(Enum):
@@ -51,6 +85,10 @@ class Slot:
     request_id: Any = None
     stop_reason: str | None = None
     n_probs: int = 0  # top-N logprobs per sampled token
+    # Self-Extend state (main.cpp:618-640)
+    ga_i: int = 0
+    pos_delta: int = 0  # logical (RoPE) position - physical write index
+    pos_map: Any = None  # per-cell logical positions (lazy)
     # context-shift history: (n_keep, n_discard) per shift, in order
     shifts: list = field(default_factory=list)
 
@@ -70,7 +108,14 @@ class Engine:
                  max_seq: int = 2048, n_batch: int = 256,
                  opts: ForwardOptions | None = None, kv_dtype=torch.bfloat16,
                  eog_ids: set[int] | None = None, ctx_shift: bool = False,
-                 n_keep: int = 0, device=None):
+                 n_keep: int = 0, grp_attn_n: int = 1, grp_attn_w: int = 512,
+                 device=None):
+        if grp_attn_n < 1:
+            raise ValueError("grp_attn_n must be >= 1")
+        if grp_attn_n > 1 and grp_attn_w % grp_attn_n:
+            raise ValueError("grp_attn_w must be a multiple of grp_attn_n (main.cpp:221)")
+        if ctx_shift and grp_attn_n > 1:
+            raise ValueError("context shift and Self-Extend are mutually exclusive")
         self.cfg = cfg
         self.opts = opts or ForwardOptions()
         self.device = resolve_device(device)
@@ -84,6 +129,8 @@ class Engine:
         self.n_decode_calls = 0
         self.ctx_shift = ctx_shift  # shift on a full context, else stop
         self.n_keep = n_keep
+        self.grp_attn_n = grp_attn_n
+        self.grp_attn_w = grp_attn_w
         self.perf = {"n_prompt": 0, "n_decode": 0, "t_prompt_s": 0.0, "t_decode_s": 0.0}
         self._fused_gen = FusedGenerator(self._decode_raw, self.device)
 
@@ -93,15 +140,17 @@ class Engine:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     @torch.no_grad()
-    def _prefill(self, tokens: np.ndarray, pos0: int, slot: int) -> None:
+    def _prefill(self, tokens: np.ndarray, pos0: int, rope0: int, slot: int) -> None:
         """Ingest `tokens` on one slot's cache row in place (the JAX engine
-        slices the row out and sets it back)."""
+        slices the row out and sets it back). pos0 is the physical write
+        index, rope0 the logical (RoPE) position; they differ only under
+        Self-Extend, and visibility follows the physical one."""
         s_len = len(tokens)
         row = [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.kv.caches]
-        positions = self._tensor(pos0 + np.arange(s_len)[None])
+        steps = np.arange(s_len)[None]
         forward(self.params, self.cfg, self._tensor(tokens[None], torch.int64),
-                positions, row, self._tensor([pos0]), self.opts,
-                return_hidden=True)
+                self._tensor(rope0 + steps), row, self._tensor([pos0]), self.opts,
+                return_hidden=True, mask_positions=self._tensor(pos0 + steps))
 
     @torch.no_grad()
     def _decode_raw(self, params, caches, tokens, cache_pos, rope_pos):
@@ -146,6 +195,9 @@ class Engine:
         slot.request_id = request_id
         slot.stop_reason = None
         slot.n_probs = n_probs
+        slot.ga_i = 0
+        slot.pos_delta = 0
+        slot.pos_map = None
         slot.shifts = []
         for t in prompt_tokens:
             slot.sampler.accept(t, accept_grammar=False)
@@ -163,17 +215,27 @@ class Engine:
 
     # -- the decode loop -----------------------------------------------------------
 
+    def _apply_self_extend(self, slot: Slot) -> None:
+        apply_self_extend(slot, self.kv.used(slot.id), self.max_seq, self.grp_attn_n,
+                          self.grp_attn_w, lambda d: self.kv.rope_shift(slot.id, d))
+
+    def _record_positions(self, slot: Slot, pos0: int, n: int) -> None:
+        """Track the logical position of newly written cells (Self-Extend)."""
+        if self.grp_attn_n <= 1:
+            return
+        if slot.pos_map is None:
+            slot.pos_map = np.arange(self.max_seq, dtype=np.int64)
+        slot.pos_map[pos0:pos0 + n] = pos0 + slot.pos_delta + np.arange(n, dtype=np.int64)
+
     def _advance_prefill(self, slot: Slot) -> None:
         """Ingest one chunk of prompt[:-1] into the slot's cache row."""
+        self._apply_self_extend(slot)
         target = len(slot.prompt) - 1
         chunk = slot.prompt[slot.n_prompt_done: min(slot.n_prompt_done + self.n_batch, target)]
         pos0 = self.kv.used(slot.id)
-        # a padded bucket past the end would clamp the write start and
-        # overwrite earlier cells: shrink it to fit
-        s_len = min(_bucket(len(chunk), self.n_batch), self.max_seq - pos0)
-        padded = np.zeros(s_len, dtype=np.int64)
-        padded[: len(chunk)] = chunk
-        self._prefill(padded, pos0, slot.id)
+        self._prefill(np.asarray(chunk, dtype=np.int64), pos0, pos0 + slot.pos_delta,
+                      slot.id)
+        self._record_positions(slot, pos0, len(chunk))
         self.kv.cache_pos[slot.id] += len(chunk)
         slot.n_prompt_done += len(chunk)
         if slot.n_prompt_done >= target:
@@ -208,10 +270,16 @@ class Engine:
                     n_discard = max((used - self.n_keep) // 2, 1)
                     self.kv.context_shift(slot.id, self.n_keep, n_discard)
                     slot.shifts.append((self.n_keep, n_discard))
+        if self.grp_attn_n > 1:
+            for slot in active:
+                self._apply_self_extend(slot)
+                self._record_positions(slot, self.kv.used(slot.id), 1)
         t0 = time.perf_counter()
         tokens = np.zeros((self.n_slots, 1), dtype=np.int64)
+        rope_delta = np.zeros(self.n_slots, dtype=np.int32)
         for slot in active:
             tokens[slot.id, 0] = slot.generated[-1] if slot.generated else slot.prompt[-1]
+            rope_delta[slot.id] = slot.pos_delta
         cache_pos = self._tensor(self.kv.cache_pos)  # inactive rows park in place
         # one decode program whatever the transfer mode, so the shortlist
         # and full-row paths see the same logits
@@ -219,7 +287,7 @@ class Engine:
         with torch.no_grad():
             logits, self.kv.caches = self._decode_raw(
                 self.params, self.kv.caches, self._tensor(tokens, torch.int64),
-                cache_pos, cache_pos)
+                cache_pos, self._tensor(self.kv.cache_pos + rope_delta))
             lf = logits.float()
             if use_sl:
                 vals, idx = stable_topk(lf, min(MAX_TOPK, lf.shape[-1]))
@@ -328,14 +396,23 @@ class Engine:
             return []
         B = self.n_slots
         chunk = max_chunk or self._fused_gen.chunk
+        # Self-Extend: apply pending compression on the host, then cap the
+        # chunk so no slot crosses a ga boundary mid-chunk
+        if self.grp_attn_n > 1:
+            for s in active:
+                self._apply_self_extend(s)
+                n_past = self.kv.used(s.id) + s.pos_delta
+                chunk = max(1, min(chunk, int(s.ga_i + self.grp_attn_w - n_past)))
         probs_k = max((s.n_probs for s in active), default=0)
         token = np.zeros((B, 1), np.int64)
+        rope_delta = np.zeros(B, np.int32)
         n_left = np.zeros(B, np.int32)
         gen_count = np.zeros(B, np.int32)
         slot_params: list = [None] * B
         recent: list = [[] for _ in range(B)]
         for s in active:
             token[s.id, 0] = s.generated[-1] if s.generated else s.prompt[-1]
+            rope_delta[s.id] = s.pos_delta
             room = self.max_seq - self.kv.used(s.id)
             want = s.n_predict - len(s.generated) if s.n_predict >= 0 else chunk
             n_left[s.id] = max(min(want, room, chunk), 1)
@@ -352,7 +429,7 @@ class Engine:
 
         t0 = time.perf_counter()
         caches, toks, new_pos, lp = self._fused_gen.generate(
-            self.params, self.kv.caches, token, cache_pos, np.zeros(B, np.int32),
+            self.params, self.kv.caches, token, cache_pos, rope_delta,
             slot_params, recent, n_left, gen_count,
             logit_bias=active[0].sampler.p.logit_bias, chunk=chunk,
             eog_ids=sorted(self.eog_ids), probs_k=probs_k)
@@ -363,6 +440,8 @@ class Engine:
         events: list[StepEvent] = []
         for s in active:
             kept = [int(t) for t in toks[s.id] if t >= 0]
+            if kept:
+                self._record_positions(s, int(cache_pos[s.id]), len(kept))
             self.kv.cache_pos[s.id] = int(new_pos[s.id])
             for j, tok_ in enumerate(kept):
                 s.generated.append(tok_)
@@ -399,15 +478,14 @@ class Engine:
     def embed(self, prompt_tokens: list[int], pooling: str = "mean") -> np.ndarray:
         """Sequence embedding (the /v1/embeddings path): pooled final-norm
         hidden states over a scratch one-row cache."""
-        s_len = _bucket(len(prompt_tokens), max(self.n_batch, len(prompt_tokens)))
-        padded = np.zeros((1, s_len), dtype=np.int64)
-        padded[0, : len(prompt_tokens)] = prompt_tokens
-        kv = [(torch.zeros_like(k[0:1]), torch.zeros_like(v[0:1])) for k, v in self.kv.caches]
-        hidden, _ = forward(self.params, self.cfg, self._tensor(padded, torch.int64),
-                            self._tensor(np.arange(s_len)[None]), kv,
+        n = len(prompt_tokens)
+        kv = init_kv_caches(self.cfg, 1, n, self.kv.dtype, self.device)
+        hidden, _ = forward(self.params, self.cfg,
+                            self._tensor(np.asarray([prompt_tokens]), torch.int64),
+                            self._tensor(np.arange(n)[None]), kv,
                             self._tensor([0]), self.opts, return_hidden=True)
         hidden = rms_norm(hidden, self.params["output_norm"], self.cfg.rms_eps)
-        h = hidden[0, : len(prompt_tokens)].float().cpu().numpy()
+        h = hidden[0].float().cpu().numpy()
         if pooling == "last":
             return h[-1]
         if pooling == "cls":
@@ -421,9 +499,3 @@ class Engine:
             self.step()
         return list(slot.generated)
 
-
-def _bucket(n: int, cap: int) -> int:
-    b = 8
-    while b < n:
-        b *= 2
-    return min(b, cap)

@@ -1,13 +1,15 @@
-"""KV-cache management: sequence ops over dense per-slot cache buffers.
+"""KV-cache management: sequence ops over per-slot cache buffers.
 
-Counterpart of prima_tpu/runtime/kv.py for dense caches. Each layer's
-cache is a (n_slots, T, kvh, hd) tensor with one sequence per slot row;
-the host keeps one write index per slot (`cache_pos`). The JAX package
-rebuilds the buffers functionally; here every op writes the slot's row in
-place.
+Counterpart of prima_tpu/runtime/kv.py for per-layer caches. Each layer's
+cache is a dense (n_slots, T, kvh, hd) tensor or a KVQ8 / KVQ4 of that
+shape, with one sequence per slot row; the host keeps one write index per
+slot (`cache_pos`). The JAX package rebuilds the buffers functionally;
+here every op writes the slot's row in place.
 
 K is cached after RoPE, so moving a cell by d positions re-rotates its K
-by d (rope(p) -> rope(p + d) composes additively).
+by d (rope(p) -> rope(p + d) composes additively). A quantized K row is
+materialized to bf16, rotated and requantized, as the JAX package does,
+so the codes match it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.llama import init_kv_caches
+from ..ops.kvquant import is_quantized
 from ..ops.layers import rope_freqs, rotate
 
 
@@ -30,14 +33,37 @@ def rope_delta(k: torch.Tensor, delta: torch.Tensor, inv_freq: torch.Tensor,
                   torch.sin(theta)[:, None, :], rope_type).to(k.dtype)
 
 
+def materialize_row(cache, slot: int) -> torch.Tensor:
+    """One slot's dense (T, H, D) values: a view of a dense cache, or a
+    quantized cache dequantized to bf16."""
+    if is_quantized(cache):
+        return cache[slot].to(torch.bfloat16)
+    return cache[slot]
+
+
+def set_row(cache, slot: int, row: torch.Tensor) -> None:
+    """Write one slot's dense row back, requantizing a quantized cache."""
+    if is_quantized(cache):
+        q, s = cache.quantize(row)
+        cache.qs[slot].copy_(q)
+        cache.scale[slot].copy_(s)
+    else:
+        cache[slot].copy_(row)
+
+
+def _parts(cache) -> tuple:
+    """The tensors a cache is made of (codes and scales, or itself)."""
+    return (cache.qs, cache.scale) if is_quantized(cache) else (cache,)
+
+
 @dataclass
 class KVCache:
-    """Per-slot dense KV cache plus host-side write indices."""
+    """Per-slot KV cache plus host-side write indices."""
 
     cfg: ModelConfig
     n_slots: int
     max_seq: int
-    dtype: torch.dtype = torch.bfloat16
+    dtype: object = torch.bfloat16  # a torch dtype, "q8_0" or "q4_0"
     device: torch.device | None = None
     caches: list = None  # per layer (k, v): (n_slots, T, kvh, hd)
     cache_pos: np.ndarray = None  # (n_slots,) next write index == seq length
@@ -50,6 +76,9 @@ class KVCache:
             self.cache_pos = np.zeros(self.n_slots, dtype=np.int32)
         self._inv_freq, _ = rope_freqs(self.cfg, self.device)
 
+    def _index(self, a: np.ndarray, dtype=np.int64) -> torch.Tensor:
+        return torch.from_numpy(a.astype(dtype)).to(self._inv_freq.device)
+
     def seq_rm(self, slot: int, p0: int = 0, p1: int = -1) -> None:
         """Remove [p0, p1) of a slot. Only the write index moves: the
         causal mask hides every cell at or past it; interior removal
@@ -61,8 +90,8 @@ class KVCache:
 
     def seq_cp(self, dst: int, src: int) -> None:
         for k, v in self.caches:
-            k[dst].copy_(k[src])
-            v[dst].copy_(v[src])
+            for a in _parts(k) + _parts(v):
+                a[dst].copy_(a[src])
         self.cache_pos[dst] = self.cache_pos[src]
 
     def seq_keep(self, slot: int) -> None:
@@ -73,14 +102,15 @@ class KVCache:
     def remap(self, slot: int, src: np.ndarray, delta: np.ndarray,
               new_used: int) -> None:
         """Cell i of the slot takes cell src[i], with K re-rotated by
-        delta[i] positions: the primitive under context shift."""
-        idx = torch.from_numpy(np.minimum(src, self.max_seq - 1).astype(np.int64)
-                               ).to(self.caches[0][0].device)
-        d = torch.from_numpy(delta.astype(np.int32)).to(idx.device)
+        delta[i] positions: the primitive under context shift. V (codes
+        and scales of a quantized cache) moves as it is."""
+        idx = self._index(np.minimum(src, self.max_seq - 1))
+        d = self._index(delta, np.int32)
         for k, v in self.caches:
-            k[slot].copy_(rope_delta(k[slot][idx], d, self._inv_freq,
-                                     self.cfg.rope_type))
-            v[slot].copy_(v[slot][idx])
+            set_row(k, slot, rope_delta(materialize_row(k, slot)[idx], d,
+                                        self._inv_freq, self.cfg.rope_type))
+            for a in _parts(v):
+                a[slot].copy_(a[slot][idx])
         self.cache_pos[slot] = new_used
 
     def context_shift(self, slot: int, n_keep: int, n_discard: int) -> None:
@@ -96,12 +126,23 @@ class KVCache:
         self.remap(slot, src, delta, n_keep + move)
 
     def rope_shift(self, slot: int, delta: np.ndarray) -> None:
-        """Re-rotate the K of every cell i by delta[i] without moving it."""
+        """Re-rotate the K of every cell i by delta[i] without moving it
+        (Self-Extend: logical positions compress, storage order stays)."""
         if not np.any(delta):
             return
-        d = torch.from_numpy(delta.astype(np.int32)).to(self.caches[0][0].device)
+        d = self._index(delta, np.int32)
         for k, _ in self.caches:
-            k[slot].copy_(rope_delta(k[slot], d, self._inv_freq, self.cfg.rope_type))
+            set_row(k, slot, rope_delta(materialize_row(k, slot), d, self._inv_freq,
+                                        self.cfg.rope_type))
+
+    def seq_div(self, slot: int, p0: int, p1: int, divisor: int) -> None:
+        """Divide the positions of cells [p0, p1) by `divisor` (Self-Extend
+        grouped attention), re-rotating their K."""
+        if divisor <= 1:
+            return
+        idx = np.arange(self.max_seq, dtype=np.int32)
+        newpos = np.where((idx >= p0) & (idx < p1), idx // divisor, idx)
+        self.rope_shift(slot, (newpos - idx).astype(np.int32))
 
     def used(self, slot: int) -> int:
         return int(self.cache_pos[slot])

@@ -59,8 +59,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stop at context_full instead of shifting")
     ap.add_argument("--keep", type=int, default=0,
                     help="tokens to keep at the start on context shift")
-    ap.add_argument("-gan", "--grp-attn-n", type=int, default=1)
-    ap.add_argument("--slot-save-path", default=env("SLOT_SAVE_PATH"))
+    ap.add_argument("-gan", "--grp-attn-n", type=int, default=1,
+                    help="Self-Extend group factor (disables context shift)")
+    ap.add_argument("-gaw", "--grp-attn-w", type=int, default=512,
+                    help="Self-Extend group window")
+    ap.add_argument("--slot-save-path", default=env("SLOT_SAVE_PATH"),
+                    help="confine /slots save/restore files to this dir")
     ap.add_argument("--api-key", action="append", default=None, metavar="KEY")
     ap.add_argument("--api-key-file", default=env("API_KEY_FILE"))
     ap.add_argument("--override-kv", action="append", default=[],
@@ -78,13 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
 def _unported(args) -> str | None:
     """The first requested option this port does not carry yet."""
     checks = [
-        (args.cache_type in ("q8_0", "q4_0"), f"-ctk {args.cache_type}"),
         (bool(args.lora), "--lora"),
         (bool(args.model_draft), "-md / --model-draft"),
         (args.pp * args.tp * args.dp > 1, "--pp / --tp / --dp"),
         (args.world > 1, "-w / --world"),
-        (args.grp_attn_n > 1, "-gan > 1 (Self-Extend)"),
-        (bool(args.slot_save_path), "--slot-save-path"),
     ]
     return next((what for bad, what in checks if bad), None)
 
@@ -113,17 +114,21 @@ def main(argv=None) -> int:
         yarn_ext_factor=args.yarn_ext_factor, yarn_attn_factor=args.yarn_attn_factor,
         yarn_beta_fast=args.yarn_beta_fast, yarn_beta_slow=args.yarn_beta_slow)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    kv_dtype = dtypes.get(args.cache_type, args.cache_type)  # or "q8_0" / "q4_0"
     ctx_size = args.ctx_size or model.cfg.n_ctx_train  # -c 0: training context
     engine = Engine(model.cfg, model.params, n_slots=args.parallel, max_seq=ctx_size,
                     n_batch=args.batch_size,
                     opts=ForwardOptions(matmul_impl=args.matmul, dtype=dtypes[args.dtype]),
-                    eog_ids=model.eog_ids, kv_dtype=dtypes[args.cache_type],
-                    ctx_shift=not args.no_context_shift, n_keep=args.keep,
-                    device=args.device)
+                    eog_ids=model.eog_ids, kv_dtype=kv_dtype,
+                    # Self-Extend disables context shift (server.cpp:2034)
+                    ctx_shift=not args.no_context_shift and args.grp_attn_n == 1,
+                    n_keep=args.keep, grp_attn_n=args.grp_attn_n,
+                    grp_attn_w=args.grp_attn_w, device=args.device)
     bos = model.tokenizer.vocab.bos_id
     engine.run_to_completion([bos if bos >= 0 else 0], n_predict=1)  # warmup
     print("warmup done", file=sys.stderr)
     httpd, _ctx = serve(model, engine, args.host, args.port, args.alias,
+                        slot_save_dir=args.slot_save_path,
                         api_keys=_load_api_keys(args))
     print(f"listening on http://{args.host}:{args.port}", file=sys.stderr, flush=True)
     try:

@@ -1,8 +1,8 @@
 """OpenAI-compatible HTTP server.
 
 Counterpart of prima_tpu/server/app.py for the single-device path. Not
-ported yet: LoRA adapters, grammar / JSON-schema sampling and slot
-save / restore; requests for them get a 400 "not yet ported" error.
+ported yet: LoRA adapters and grammar / JSON-schema sampling; requests for
+them get a 400 "not yet ported" error.
 
 The llama-server analogue (reference examples/server/server.cpp): slot-based
 continuous batching over the Engine, SSE streaming, /v1/chat/completions,
@@ -24,7 +24,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..models.loader import LoadedModel
-from ..ops import kv_write
+from ..ops import attention, kv_write
 from ..quant import qmatmul
 from ..runtime.engine import Engine
 from ..sampling import Sampler, SamplerParams
@@ -34,7 +34,7 @@ from .scheduler import EngineWorker, GenerationRequest
 
 class ServerContext:
     def __init__(self, model: LoadedModel, engine: Engine, alias: str = "prima-tpu",
-                 api_keys: list[str] | None = None):
+                 slot_save_dir: str | None = None, api_keys: list[str] | None = None):
         self.model = model
         self.engine = engine
         self.alias = alias
@@ -43,6 +43,9 @@ class ServerContext:
         self.worker = EngineWorker(engine, model.tokenizer)
         self.chat_template = model.gguf.get("tokenizer.chat_template")
         self.t_start = time.time()
+        # like the reference's --slot-save-path: when set, slot files are
+        # confined to this directory (plain filenames only)
+        self.slot_save_dir = slot_save_dir
 
     def start(self):
         self.worker.start()
@@ -425,7 +428,23 @@ def make_handler(ctx: ServerContext):
                 ctx.worker.run(_erase)
                 self._json(200, {"id_slot": slot_id, "erased": True})
             elif action in ("save", "restore"):
-                self._error(400, "slot save / restore is not yet ported")
+                import os
+
+                from ..runtime.state import slot_restore, slot_save
+
+                fname = body.get("filename") or f"slot{slot_id}.bin"
+                if ctx.slot_save_dir is not None:
+                    # confined mode (--slot-save-path): plain filenames only
+                    if os.path.basename(fname) != fname or fname.startswith("."):
+                        return self._error(400, "invalid filename")
+                    fname = os.path.join(ctx.slot_save_dir, fname)
+                if action == "save":
+                    n = ctx.worker.run(lambda: slot_save(ctx.engine, slot_id, fname))
+                    self._json(200, {"id_slot": slot_id, "filename": fname, "n_saved": n})
+                else:
+                    n = ctx.worker.run(lambda: slot_restore(ctx.engine, slot_id, fname))
+                    self._json(200, {"id_slot": slot_id, "filename": fname,
+                                     "n_restored": n})
             else:
                 self._error(400, f"unknown slot action {action!r}")
 
@@ -456,13 +475,17 @@ def _usage(req: GenerationRequest) -> dict:
 
 def kernel_launches() -> dict[str, int]:
     """Launch counts of the port's CUDA kernels (0 on the CPU)."""
-    return {c.name: c.count for c in (qmatmul.launches, kv_write.launches)}
+    return {c.name: c.count for c in (qmatmul.launches, kv_write.launches,
+                                      attention.decode_launches,
+                                      attention.prefill_launches)}
 
 
 def serve(model: LoadedModel, engine: Engine, host: str = "127.0.0.1", port: int = 8080,
-          alias: str = "prima-tpu", api_keys: list[str] | None = None,
+          alias: str = "prima-tpu", slot_save_dir: str | None = None,
+          api_keys: list[str] | None = None,
           ) -> tuple[ThreadingHTTPServer, ServerContext]:
-    ctx = ServerContext(model, engine, alias, api_keys=api_keys)
+    ctx = ServerContext(model, engine, alias, slot_save_dir=slot_save_dir,
+                        api_keys=api_keys)
     ctx.start()
     httpd = ThreadingHTTPServer((host, port), make_handler(ctx))
     return httpd, ctx

@@ -1,0 +1,128 @@
+"""The port's flash attention (ops/attention.py) against the JAX package's
+Pallas kernels (ops/attention_pallas.py, interpret mode on the CPU), on the
+same numpy inputs. On the CPU the port's wrappers run their plain
+versions; tests/test_torch_cuda.py holds the CUDA kernels against those on
+the card. Tolerances: f32 max |err| <= 2e-5 * max(1, max |ref|) (sums in
+another order, as tests/test_attention_pallas.py allows the kernel against
+XLA); bf16 outputs within 1e-2 * max |ref| (one bf16 rounding apart)."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from prima_tpu.models.llama import ForwardOptions as JOpts
+from prima_tpu.models.llama import forward as jforward
+from prima_tpu.models.llama import init_kv_caches as jinit_kv
+from prima_tpu.models.loader import load_model as jload_model
+from prima_tpu.ops import attention_pallas as jattn
+from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+from prima_tpu_torch.models.loader import load_model
+from prima_tpu_torch.ops import attention as attn
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PAIR = os.path.join(ROOT, "models_tiny_pair", "target.gguf")
+F32_TOL = 2e-5
+
+
+def _inputs(b, s, t, h, kvh, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, t, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, t, kvh, d)).astype(np.float32)
+    return q, k, v
+
+
+def _compare(q, k, v, positions, dtype="float32"):
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jattn.flash_attention(
+        jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+        jnp.asarray(positions, jnp.int32), scale).astype(jnp.float32))
+    got = attn.flash_attention(
+        torch.from_numpy(q).to(td), torch.from_numpy(k).to(td),
+        torch.from_numpy(v).to(td), torch.from_numpy(np.asarray(positions, np.int32)),
+        scale)
+    assert got.dtype == td and got.shape == q.shape
+    err = np.abs(got.float().numpy() - want).max()
+    ref = np.abs(want).max()
+    tol = F32_TOL * max(1.0, ref) if dtype == "float32" else 1e-2 * ref
+    assert err <= tol, (err, ref)
+
+
+def _contiguous(pos0, s):
+    return np.asarray(pos0, np.int32)[:, None] + np.arange(s, dtype=np.int32)
+
+
+@pytest.mark.parametrize("b,s,t,h,kvh,d", [
+    (1, 1, 128, 8, 2, 64),    # decode step
+    (2, 16, 64, 4, 4, 32),    # prefill, MHA
+    (1, 8, 256, 8, 2, 64),    # s_q = 8: still the decode kernel
+])
+def test_matches_jax_at_the_pallas_test_shapes(b, s, t, h, kvh, d):
+    _compare(*_inputs(b, s, t, h, kvh, d), _contiguous([20] * b, s))
+
+
+@pytest.mark.parametrize("b,s,t,h,kvh,d,pos0", [
+    (4, 1, 64, 8, 2, 64, [0, 17, 40, 63]),      # per-row positions, 0 and T - 1
+    (4, 4, 64, 8, 2, 64, [0, 9, 30, 60]),       # s_q = 4
+    (3, 1, 96, 4, 1, 128, [95, 0, 50]),         # T = 96: one block of 96
+    (2, 2, 320, 4, 2, 64, [63, 250]),           # T = 320: kv_blk halves to 64
+    (2, 1, 2000, 4, 2, 64, [5, 1999]),          # T = 2000: kv_blk 16
+])
+def test_decode_matches_jax(b, s, t, h, kvh, d, pos0):
+    _compare(*_inputs(b, s, t, h, kvh, d, seed=b + s + t), _contiguous(pos0, s))
+
+
+@pytest.mark.parametrize("pos0", [[3, 600], [0, 1000]])
+def test_prefill_with_masked_blocks_matches_jax(pos0):
+    """T = 1024 (blocks of 512): the later blocks are wholly masked for
+    some rows, which the port's kernel skips and the TPU kernel scans."""
+    _compare(*_inputs(2, 16, 1024, 4, 2, 64, seed=7), _contiguous(pos0, 16))
+
+
+@pytest.mark.parametrize("s", [1, 4, 24])
+def test_bf16_matches_jax(s):
+    _compare(*_inputs(2, s, 128, 8, 2, 64, seed=s), _contiguous([5, 100], s), "bfloat16")
+
+
+def test_check_rejects_what_the_kernels_cannot_take():
+    q = torch.zeros(2, 1, 8, 64)
+    k = torch.zeros(2, 16, 2, 64)
+    pos = torch.zeros(2, 1, dtype=torch.int32)
+    attn._check(q, k, k, pos, "t")
+    bad = [(q.bfloat16(), k, k, pos), (q, k, k, pos.long()),
+           (torch.zeros(2, 1, 8, 96), torch.zeros(2, 16, 2, 96), torch.zeros(2, 16, 2, 96), pos),
+           (q, k.transpose(1, 2).contiguous().transpose(1, 2), k, pos),
+           (q.transpose(2, 3).contiguous().transpose(2, 3), k, k, pos),
+           (q, torch.zeros(2, 16, 3, 64), torch.zeros(2, 16, 3, 64), pos)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            attn._check(*args, "t")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return jload_model(PAIR), load_model(PAIR, device="cpu")
+
+
+def test_forward_with_kernel_attention_matches_jax_pallas(pair):
+    """A 12-token prefill (flash prefill) and a decode step (flash decode)
+    through forward, attn_impl "kernel" against JAX "pallas", f32."""
+    jm, m = pair
+    jopts = JOpts(matmul_impl="xla", attn_impl="pallas", dtype=jnp.float32)
+    opts = ForwardOptions(attn_impl="kernel", dtype=torch.float32)
+    jkv = jinit_kv(jm.cfg, 1, 64, jnp.float32)
+    kv = init_kv_caches(m.cfg, 1, 64, torch.float32, "cpu")
+    toks = m.tokenizer.encode("def main(): return 42", add_special=True)[:12]
+    steps = [(toks, 0), ([toks[3]], 12)]
+    for chunk, p0 in steps:
+        pos = np.arange(p0, p0 + len(chunk), dtype=np.int32)[None]
+        want, jkv = jforward(jm.params, jm.cfg, np.asarray([chunk], np.int32), pos, jkv,
+                             np.asarray([p0], np.int32), jopts)
+        got, kv = forward(m.params, m.cfg, torch.tensor([chunk]), torch.from_numpy(pos),
+                          kv, torch.tensor([p0], dtype=torch.int32), opts)
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()

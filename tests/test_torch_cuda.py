@@ -15,7 +15,9 @@ import torch
 
 from prima_tpu_torch.gguf.constants import GGMLType
 from prima_tpu_torch.models.llama import synth_qtensor_device
+from prima_tpu_torch.ops import attention as attn
 from prima_tpu_torch.ops import kv_write as kvw
+from prima_tpu_torch.ops import kvquant as kvq
 from prima_tpu_torch.quant import qmatmul as qm
 from prima_tpu_torch.quant.device_format import SUPPORTED_TYPES, to_device_format
 from prima_tpu_torch.quant.qtensor import QTensor
@@ -137,3 +139,94 @@ def test_kv_write_rejects_host_positions_and_dtype_mismatch(dev):
         kvw.kv_write(cache, new, torch.tensor([0, 1], dtype=torch.int64, device=dev))
     with pytest.raises(ValueError):
         kvw.kv_write(cache, new.half(), torch.tensor([0, 1], dtype=torch.int32, device=dev))
+
+
+# flash attention: (B, S, H, KVH, D, T, pos0 per batch row)
+ATTN_CASES = [(4, 1, 32, 8, 128, 2048, [5, 1000, 2047, 700]),  # 8B decode
+              (4, 4, 32, 8, 128, 2000, [0, 77, 1996, 1024]),  # multi-row, T % 256 != 0
+              (4, 1, 4, 4, 64, 256, [0, 1, 100, 255]),        # the tiny pair
+              (2, 8, 16, 2, 64, 300, [3, 290]),               # 64 folded rows: 2 row tiles
+              (1, 129, 32, 8, 128, 1024, [300]),              # ragged prefill chunk
+              (2, 16, 4, 4, 64, 256, [0, 200])]               # tiny-pair prefill
+
+
+def _attn_inputs(dev, b, s, h, kvh, d, t, pos0, dtype, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, s, h, d), (b, t, kvh, d), (b, t, kvh, d)))
+    pos = (torch.tensor(pos0, dtype=torch.int32, device=dev)[:, None]
+           + torch.arange(s, dtype=torch.int32, device=dev))
+    return q, k, v, pos
+
+
+def _attn_tol(ref, dtype):
+    # f32: sums in another order; bf16: one output rounding apart
+    m = ref.float().abs().max().item()
+    return 2e-5 * max(1.0, m) if dtype == torch.float32 else 1e-2 * m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kvh,d,t,pos0", ATTN_CASES)
+def test_flash_attention_matches_plain(dev, b, s, h, kvh, d, t, pos0, dtype):
+    q, k, v, pos = _attn_inputs(dev, b, s, h, kvh, d, t, pos0, dtype)
+    plain = attn.flash_decode_plain if s <= 8 else attn.flash_prefill_plain
+    counter = attn.decode_launches if s <= 8 else attn.prefill_launches
+    before = counter.count
+    got = attn.flash_attention(q, k, v, pos, 0.125)
+    want = plain(q, k, v, pos, 0.125)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= _attn_tol(want, dtype)
+
+
+def test_flash_reads_only_the_visible_prefix(dev):
+    """Cells past the last visible one are never read: NaN there changes
+    nothing, in decode and prefill."""
+    for s, pos0 in ((1, [10, 300]), (4, [0, 250]), (32, [10, 300])):
+        q, k, v, pos = _attn_inputs(dev, 2, s, 8, 2, 128, 512, pos0, torch.bfloat16)
+        lim = pos0[1] + s  # one past the last query position of row 1
+        want = attn.flash_attention(q, k, v, pos, 0.1)
+        k[1, lim:] = float("nan")
+        v[1, lim:] = float("nan")
+        k[0, 64:] = float("nan")
+        v[0, 64:] = float("nan")
+        got = attn.flash_attention(q, k, v, pos, 0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_flash_on_a_slot_row_view(dev):
+    """The engine's prefill hands in one slot's row of the full cache."""
+    q, k, v, pos = _attn_inputs(dev, 3, 16, 8, 2, 64, 128, [0, 40, 90], torch.float32)
+    got = attn.flash_prefill(q[1:2], k[1:2], v[1:2], pos[1:2], 0.125)
+    want = attn.flash_prefill_plain(q[1:2], k[1:2].clone(), v[1:2].clone(), pos[1:2], 0.125)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= _attn_tol(want, torch.float32)
+
+
+def test_flash_rejects_what_it_cannot_take(dev):
+    q, k, v, pos = _attn_inputs(dev, 2, 1, 8, 2, 64, 64, [1, 2], torch.float32)
+    for args in [(q.bfloat16(), k, v, pos), (q, k, v, pos.long()),
+                 (q, k.transpose(1, 2).contiguous().transpose(1, 2), v, pos),
+                 (q, k.cpu(), v, pos)]:
+        with pytest.raises(ValueError):
+            attn.flash_decode(*args, 0.125)
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
+def test_quantized_update_kv_matches_cpu(dev, kind):
+    """KVQ8 / KVQ4 codes written through the kv_write kernel equal the CPU
+    path's (plain index writes)."""
+    cls = kvq.KVQ8 if kind == "q8_0" else kvq.KVQ4
+    new = torch.randn((4, 3, 8, 128), generator=torch.Generator().manual_seed(5))
+    pos = torch.tensor([0, 9, 30, 2045], dtype=torch.int32)
+    caches = []
+    for d in ("cpu", dev):
+        c = cls.zeros((4, 2048, 8, 128), d)
+        kvq.update_kv(c, new.to(d), pos.to(d))
+        caches.append(c)
+    torch.cuda.synchronize()
+    assert torch.equal(caches[0].qs, caches[1].qs.cpu())
+    assert torch.equal(caches[0].scale, caches[1].scale.cpu())

@@ -164,3 +164,87 @@ def test_kv_cache_ops_match_jax():
     for c in (jkv, kv):
         c.seq_keep(1)
     np.testing.assert_array_equal(kv.cache_pos, jkv.cache_pos)
+
+
+def _engines_with(pair, kv_dtype, jopts=None, opts=None, **kw):
+    """The two engines with f32 activations, a KV cache of "f32", "q8_0"
+    or "q4_0", and optional forward options."""
+    jm, m = pair
+    jkv, kv = (jnp.float32, torch.float32) if kv_dtype == "f32" else (kv_dtype, kv_dtype)
+    jeng = JEngine(jm.cfg, jm.params, eog_ids=jm.eog_ids, scan=False, kv_dtype=jkv,
+                   opts=jopts or JOpts(matmul_impl="xla", dtype=jnp.float32), **kw)
+    eng = Engine(m.cfg, m.params, eog_ids=m.eog_ids, device="cpu", kv_dtype=kv,
+                 opts=opts or ForwardOptions(dtype=torch.float32), **kw)
+    return jeng, eng
+
+
+@pytest.mark.parametrize("kv_dtype", ["q8_0", "q4_0"])
+def test_greedy_streams_match_jax_with_quantized_kv(pair, kv_dtype):
+    jeng, eng = _engines_with(pair, kv_dtype, n_slots=3, max_seq=64, n_batch=8)
+    prompts = _prompts(pair)[:4]
+    want = _serve(jeng, prompts, True, n_predict=10)
+    assert _serve(eng, prompts, True, n_predict=10) == want
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["step_fused", "step"])
+def test_self_extend_matches_jax(pair, fused):
+    """grp_attn_n = 2 over a window of 16: prompts and generations cross
+    several ga boundaries, so K is re-rotated and RoPE positions fall
+    behind the write index."""
+    jeng, eng = _engines_with(pair, "f32", n_slots=2, max_seq=96, n_batch=8,
+                              grp_attn_n=2, grp_attn_w=16)
+    prompts = [p * 3 for p in _prompts(pair)[:3]]
+    want = _serve(jeng, prompts, fused, n_predict=24)
+    got = _serve(eng, prompts, fused, n_predict=24)
+    assert got == want
+    assert all(s.ga_i > 0 for s in eng.slots)
+
+
+def test_self_extend_with_kernel_attention_matches_jax(pair):
+    """attn_impl "kernel" against JAX "pallas" under Self-Extend: the flash
+    path's visibility must follow the physical positions, not the RoPE
+    ones."""
+    jeng, eng = _engines_with(
+        pair, "q8_0", JOpts(matmul_impl="xla", attn_impl="pallas", dtype=jnp.float32),
+        ForwardOptions(attn_impl="kernel", dtype=torch.float32),
+        n_slots=2, max_seq=64, n_batch=16, grp_attn_n=2, grp_attn_w=16)
+    prompts = [p * 2 for p in _prompts(pair)[:2]]
+    want = _serve(jeng, prompts, True, n_predict=8)
+    assert _serve(eng, prompts, True, n_predict=8) == want
+    assert all(s.ga_i >= 16 for s in eng.slots)  # two ga boundaries crossed
+
+
+def test_self_extend_arguments_are_checked(pair):
+    m = pair[1]
+    for kw in (dict(grp_attn_n=0), dict(grp_attn_n=3, grp_attn_w=16),
+               dict(grp_attn_n=2, grp_attn_w=16, ctx_shift=True)):
+        with pytest.raises(ValueError):
+            Engine(m.cfg, m.params, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("kv_dtype", ["f32", "q8_0"])
+def test_slot_file_crosses_packages(pair, tmp_path, direction, kv_dtype):
+    """A slot saved by one package restores in the other and continues to
+    the same greedy tokens the saving engine gives."""
+    from prima_tpu.runtime.state import slot_restore as jrestore
+    from prima_tpu.runtime.state import slot_save as jsave
+    from prima_tpu_torch.runtime.state import slot_restore, slot_save
+
+    jeng, eng = _engines_with(pair, kv_dtype, n_slots=2, max_seq=64, n_batch=8)
+    src, dst = (jeng, eng) if direction == "jax_to_port" else (eng, jeng)
+    save = jsave if direction == "jax_to_port" else slot_save
+    prompt = _prompts(pair)[1]
+    follow = prompt + src.run_to_completion(prompt, n_predict=6)
+    path = str(tmp_path / "slot0.bin")
+    n = save(src, 0, path)
+    assert n == len(prompt) + 5  # prompt[:-1] prefilled, 6 decode writes
+    # both engines restore the file into slot 0 and continue from it
+    restores = ((jrestore, slot_restore) if direction == "jax_to_port"
+                else (slot_restore, jrestore))
+    streams = []
+    for e, rest in zip((src, dst), restores):
+        assert rest(e, 0, path) == n and e.slots[0].prompt == follow
+        streams.append(e.run_to_completion(follow, n_predict=6))
+        assert e.kv.used(0) == n + 6  # the prefix came from the file
+    assert streams[0] == streams[1]

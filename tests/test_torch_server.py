@@ -120,13 +120,35 @@ def test_port_endpoints(servers):
     port = servers[1]
     st, data = _req(port, "GET", "/props")
     props = json.loads(data)
-    assert st == 200 and set(props["kernel_launches"]) == {"qgemv", "kv_write"}
+    assert st == 200 and set(props["kernel_launches"]) == {
+        "qgemv", "kv_write", "flash_decode", "flash_prefill"}
     st, data = _req(port, "GET", "/metrics")
     assert st == 200 and b"prima:kernel_launches_total" in data
     st, _ = _req(port, "POST", "/completion", dict(GREEDY, prompt="x", grammar="root ::= \"a\""))
     assert st == 400
 
 
+def test_slot_file_crosses_servers(servers, tmp_path):
+    """/slots/{id}?action=save on one server, restore on the other."""
+    for src, dst in (servers, servers[::-1]):
+        _req(src, "POST", "/completion", dict(GREEDY, prompt="class Foo:"))
+        path = str(tmp_path / f"slot-{src}.bin")
+        st, data = _req(src, "POST", "/slots/0?action=save", {"filename": path})
+        assert st == 200
+        n = json.loads(data)["n_saved"]
+        st, data = _req(dst, "POST", "/slots/1?action=restore", {"filename": path})
+        assert st == 200 and json.loads(data)["n_restored"] == n > 0
+
+
+def test_long_context_options_are_accepted():
+    from prima_tpu_torch.server.__main__ import _unported, build_parser
+
+    args = build_parser().parse_args(["-m", PAIR, "-ctk", "q4_0", "-gan", "4", "-gaw", "256",
+                                      "--slot-save-path", "slots"])
+    assert _unported(args) is None
+    assert (args.cache_type, args.grp_attn_n, args.grp_attn_w) == ("q4_0", 4, 256)
+
+
 def test_unported_options_exit_with_error(capsys):
-    assert server_main(["-m", PAIR, "--device", "cpu", "-ctk", "q8_0"]) == 2
+    assert server_main(["-m", PAIR, "--device", "cpu", "--lora", "adapter.gguf"]) == 2
     assert "not yet ported" in capsys.readouterr().err
