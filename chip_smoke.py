@@ -9,7 +9,13 @@ Phases, each of which fails the run on any error or mismatch:
                the main path's shapes, timed with CUDA events (median of 20
                windows after warm-up, operands rotated past the 50 MB L2), beside
                its bound and the library call that computes the same
-               function, where there is one.
+               function, where there is one: the GEMV at B = 1, 4, 8, 31 and
+               at the narrow split-K shapes (N = 1024, N = 256); the KV
+               write; flash decode; flash prefill in bf16 and f32 at 256 rows
+               at positions 0, 3840 and 7936 of 8192, 129 rows, 9 rows and
+               the tiny pair's head of 64, the cells past each prefix filled
+               with NaN; the device-memory read probe over 1 GiB (exact),
+               with its rate beside the nominal 3.35 TB/s.
   3. server  — python -m prima_tpu_torch.server on the trained tiny model:
                concurrent /completion requests and one chat request, once
                with the defaults and once with -ctk q8_0 -gan 2 -gaw 64
@@ -25,9 +31,12 @@ Phases, each of which fails the run on any error or mismatch:
   5. long    — the same weights, Engine(n_slots=4, max_seq=8192,
                attn_impl="kernel") serves 4 requests of ~4000 prompt tokens
                and 32 greedy tokens; the launch counts of all four kernels
-               in this run; a decode chunk profiled with flash and with
-               plain attention; one decode step near position 4000 over
-               f32 caches, every kernel against every plain version.
+               in this run; a prefill chunk at position 3840 and a decode
+               chunk profiled, the latter with flash and with plain
+               attention; one decode step near position 4000 over f32
+               caches, every kernel against every plain version.
+The device-memory probe is on no serving path: its launches are those of its
+own entry point, hbm_probe.measure, run with its count set to 0 before.
 
 Output: one line per case and phase, then a {"kernels": [...]} JSON line,
 the card's name and power limit from nvidia-smi, and last
@@ -58,12 +67,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 LLAMA3_8B = dict(n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8, head_dim=128,
                  n_ff=14336, n_vocab=128256, n_ctx_train=8192, rope_base=500000.0,
                  rope_dim=128)  # bench.py model_shape("8b")
-GEMV_TOL = 1e-4  # max |kernel - plain| / max |plain|, f32, sums in another order
+# max |kernel - plain| / max |plain|, f32: sums in another order; for nib4
+# weights on the tensor cores also x taken as two bf16 parts, a residual of
+# <= 2^-17 |x| per term (measured ~3e-6 of max |plain|)
+GEMV_TOL = 1e-4
 LOGITS_TOL = 1e-3  # the same over 32 layers of kernels vs plain
 # flash attention against its plain version: f32 max|err| <= 2e-5 *
 # max(1, max|plain|) (sums in another order, the tolerance the JAX package
 # holds its kernel to); bf16 outputs within 1e-2 * max|plain| (one bf16
-# rounding of the output apart)
+# rounding of the output apart; the tensor-core prefill kernel also rounds
+# each probability to bf16 before P.V, <= 2^-9 relative per term, which
+# lies inside the same bound)
 ATTN_F32_TOL = 2e-5
 ATTN_BF16_TOL = 1e-2
 
@@ -122,8 +136,10 @@ def gemv_cases():
     e, f, v, kv = 4096, 14336, 128256, 1024
     big = [("wq/wo", e, e), ("wk/wv", kv, e), ("gate/up", f, e), ("down", e, f),
            ("head", v, e)]
-    cases = [(t, lab, n, k, (1, 4, 31)) for t in (T.Q4_K, T.Q6_K, T.Q8_0, T.Q4_0, T.Q5_K)
+    cases = [(t, lab, n, k, (1, 4, 8, 31)) for t in (T.Q4_K, T.Q6_K, T.Q8_0, T.Q4_0, T.Q5_K)
              for lab, n, k in big]
+    # the narrowest split-K shape: two row blocks, 16 slices of K each
+    cases += [(t, "N=256 (split K)", 256, e, (1, 4, 8)) for t in (T.Q4_K, T.Q8_0)]
     # tiny models: the trained pair (Q8_0, width 256 / 128, head 259) and the
     # make_tiny_gguf widths (Q4_K grouped at 256, packed at 512)
     cases += [(T.Q8_0, "tiny-pair qkvo", 256, 256, (1, 4, 8)),
@@ -172,15 +188,17 @@ def phase_kernels(dev, report: dict) -> None:
             ms = time_ms(qm.qgemv, [(x, q) for q in qts])
             plain = time_ms(qm.qmatmul_plain, [(x, q) for q in qts[:4]], per_rep=2)
             bound, by = gemv_bound_ms(qt, b)
+            ksplit, ksb = qm.gemv_split(n, qt.qs.shape[1], b, qt.layout)
             case = {"format": t.name, "shape": label, "N": n, "K": k, "B": b,
                     "layout": qt.layout, "scales": qm.scale_mode(qt),
+                    "ksplit": ksplit, "slice_bytes": ksb,
                     "max_abs_err": err, "max_abs_ref": scale, "ms": ms,
                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                     "bytes": gemv_bytes(qt, b)}
             gcases.append(case)
             log(f"qgemv {t.name:5s} {label:18s} B={b:<2d} {qm.scale_mode(qt):7s} "
-                f"err {err:.2e}/{scale:.2e} ms {ms:.4f} plain {plain:.4f} "
-                f"bound {bound:.4f} ({by})")
+                f"ksplit {ksplit:<2d} err {err:.2e}/{scale:.2e} ms {ms:.4f} "
+                f"plain {plain:.4f} bound {bound:.4f} ({by})")
             if not ok:
                 raise AssertionError(f"qgemv {t.name} {label} B={b}: max |err| {err} "
                                      f"> {GEMV_TOL} * {scale}")
@@ -240,7 +258,62 @@ def phase_kernels(dev, report: dict) -> None:
     report["qgemv"]["library_ms"] = None
     report["qgemv"]["headline"] = ("sum over the 225 GEMV launches of one 8B Q4_K "
                                    "decode step at B = 4")
+    # the same sum at B = 1 and B = 8, and what a launch costs whatever its
+    # size: least squares of ms = fixed + bytes / rate over the five shapes
+    report["qgemv"]["step_ms_by_batch"] = {
+        b: sum(per_step[c["shape"]] * c["ms"] for c in gcases
+               if c["format"] == "Q4_K" and c["B"] == b and c["shape"] in per_step)
+        for b in (1, 4, 8)}
+    xs, ys = [c["bytes"] for c in step], [c["ms"] for c in step]
+    mx, my = statistics.fmean(xs), statistics.fmean(ys)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    report["qgemv"]["launch_fit"] = {"fixed_ms": my - slope * mx,
+                                     "stream_gbs": 1e-6 / slope}
+    log(f"qgemv 8B Q4_K step: {json.dumps(report['qgemv']['step_ms_by_batch'])} ms by B; "
+        f"a launch at B = 4 costs {my - slope * mx:.4f} ms + bytes at "
+        f"{1e-6 / slope:.0f} GB/s (least squares over the five shapes)")
     phase_attention(dev, report)
+    phase_probe(dev, report)
+
+
+def phase_probe(dev, report: dict) -> None:
+    """The device-memory read probe against its plain version (exact), its
+    rate beside the nominal 3.35 TB/s; then its own entry point, whose
+    launches are the ones the kernels line reports."""
+    import torch
+
+    from prima_tpu_torch.utils import hbm_probe
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    nbytes = 1 << 30
+    xs = [torch.randint(-2 ** 31, 2 ** 31 - 1, (nbytes // 4,), dtype=torch.int32,
+                        device=dev, generator=gen) for _ in range(2)]
+    got, want = hbm_probe.read_sum(xs[0]), hbm_probe.read_sum_plain(xs[0])
+    torch.cuda.synchronize()
+    err = abs(int(got) - int(want))
+    ms = time_ms(hbm_probe.read_sum, [(x,) for x in xs], reps=10, per_rep=4)
+    plain = time_ms(hbm_probe.read_sum_plain, [(x,) for x in xs], reps=10, per_rep=4)
+    del xs
+    torch.cuda.empty_cache()
+    hbm_probe.launches.count = 0
+    run = hbm_probe.measure(dev, nbytes=nbytes, reps=10)
+    launches = hbm_probe.launches.count
+    if err or not run["exact"] or not launches:
+        raise AssertionError(f"hbm_probe: |kernel - plain| {err}, entry point {run}, "
+                             f"{launches} launches")
+    report["hbm_probe"].update(
+        max_abs_err=float(err), tolerance="exact (int64 sum of the int32 words)",
+        ms=ms, plain_ms=plain, library_ms=plain, bytes=nbytes,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        achieved_gbs=nbytes / ms / 1e6, nominal_gbs=HBM_BYTES_PER_S / 1e9,
+        entry_point=run, entry_point_launches=launches,
+        headline="1 GiB read once; library_ms is x.view(int32).sum(), the plain version")
+    log(f"hbm_probe 1 GiB: exact, ms {ms:.4f} = {nbytes / ms / 1e6:.1f} GB/s of "
+        f"{HBM_BYTES_PER_S / 1e9:.0f} nominal ({nbytes / ms / 1e6 / (HBM_BYTES_PER_S / 1e9):.1%}); "
+        f"torch sum {plain:.4f} ms; entry point median {run['median_gbs']:.1f} GB/s, "
+        f"{launches} launches")
 
 
 def attn_visible(pos0: list, s: int, t: int) -> tuple[int, int]:
@@ -251,15 +324,18 @@ def attn_visible(pos0: list, s: int, t: int) -> tuple[int, int]:
     return pairs, cells
 
 
-def attn_bound(q_shape, kvh: int, t: int, pos0: list, esz: int) -> dict:
+def attn_bound(q_shape, kvh: int, t: int, pos0: list, esz: int, n_split: int = 1) -> dict:
     """The least time for this data: the bytes of q, the output and the
-    visible K/V cells once over 3.35 TB/s, against the operations the
-    visible pairs need (4 * D a pair: q.k and p.v) over the peak of the
+    visible K/V cells once over 3.35 TB/s (and, where the kernel splits the
+    KV axis, its f32 scratch written and read once), against the operations
+    the visible pairs need (4 * D a pair: q.k and p.v) over the peak of the
     inputs' type (bf16 tensor cores; f32 outside them). The f32 CUDA-core
-    figure is kept beside it, since that is what the kernels run on."""
+    figure is kept beside it, since that is what the f32 kernels run on."""
     b, s, h, d = q_shape
     pairs, cells = attn_visible(pos0, s, t)
     nbytes = 2 * b * s * h * d * esz + 2 * cells * kvh * d * esz
+    if n_split > 1:
+        nbytes += 2 * n_split * b * s * h * (d + 2) * 4
     flops = 4 * d * h * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / (BF16_FLOPS if esz == 2 else F32_FLOPS)
@@ -305,7 +381,14 @@ def phase_attention(dev, report: dict) -> None:
         "flash_prefill": [
             ("8B prefill 256 at 3840 (main path)", 1, 256, 32, 8, 128, 8192, bf16, [3840]),
             ("8B prefill 256 at 0", 1, 256, 32, 8, 128, 8192, bf16, [0]),
+            ("8B prefill 256 at 7936", 1, 256, 32, 8, 128, 8192, bf16, [7936]),
             ("8B prefill 129 (ragged)", 1, 129, 32, 8, 128, 8192, bf16, [3968]),
+            ("8B prefill S=9", 2, 9, 32, 8, 128, 8192, bf16, [100, 5000]),
+            ("tiny-pair prefill bf16", 1, 64, 4, 4, 64, 256, bf16, [64]),
+            ("8B prefill 256 at 3840 f32", 1, 256, 32, 8, 128, 8192, f32, [3840]),
+            ("8B prefill 256 at 0 f32", 1, 256, 32, 8, 128, 8192, f32, [0]),
+            ("8B prefill 129 (ragged) f32", 1, 129, 32, 8, 128, 8192, f32, [3968]),
+            ("8B prefill S=9 f32", 2, 9, 32, 8, 128, 8192, f32, [100, 5000]),
             ("tiny-pair prefill f32", 1, 64, 4, 4, 64, 256, f32, [64])]}
     for name, rows in cases.items():
         fn = attn.flash_decode if name == "flash_decode" else attn.flash_prefill
@@ -320,7 +403,22 @@ def phase_attention(dev, report: dict) -> None:
             pos = (torch.tensor(pos0, dtype=torch.int32, device=dev)[:, None]
                    + torch.arange(s, dtype=torch.int32, device=dev))
             k, v = kvs[0]
-            got = fn(q, k, v, pos, scale)
+            n_split = 1
+            if name == "flash_prefill":
+                # cells past each row's last query position hold NaN for the
+                # kernel (it must not read them); the plain version, which
+                # reads all of T, gets zeros there
+                n_split = attn.prefill_n_split(b, s, h, kvh, t, attn.prefill_tile(dt))
+                kn, vn = k.clone(), v.clone()
+                for i, p0 in enumerate(pos0):
+                    kn[i, p0 + s:] = float("nan")
+                    vn[i, p0 + s:] = float("nan")
+                    k[i, p0 + s:] = 0
+                    v[i, p0 + s:] = 0
+                got = fn(q, kn, vn, pos, scale)
+                del kn, vn
+            else:
+                got = fn(q, k, v, pos, scale)
             want = plain_fn(q, k, v, pos, scale)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -334,7 +432,8 @@ def phase_attention(dev, report: dict) -> None:
             case = {"shape": label, "B": b, "S": s, "H": h, "KVH": kvh, "D": d, "T": t,
                     "dtype": str(dt), "pos0": pos0, "max_abs_err": err, "max_abs_ref": ref,
                     "tolerance": tol, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                    **attn_bound(q.shape, kvh, t, pos0, q.element_size())}
+                    "n_split": n_split,
+                    **attn_bound(q.shape, kvh, t, pos0, q.element_size(), n_split)}
             out_cases.append(case)
             log(f"{name} {label:36s} err {err:.2e}/{ref:.2e} ms {ms:.4f} plain {plain:.4f} "
                 f"sdpa {lib:.4f} bound {case['bound_ms']:.4f} ({case['bound_by']}; "
@@ -542,6 +641,56 @@ def phase_tiny_parity(report: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+KERNEL_NAMES = {"qgemv": ("qgemv_mma", "qgemv_fma"), "kv_write": ("kv_write_kernel",),
+                "flash_decode": ("decode_split", "decode_combine"),
+                "flash_prefill": ("prefill_mma", "prefill_f32", "prefill_combine")}
+
+
+def device_ms(prof) -> tuple[dict, list]:
+    """Device ms of a torch.profiler run: by the port's kernels (and
+    "other"), and the 8 largest kernels by name."""
+    from torch.autograd import DeviceType
+
+    by_name: Counter = Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    by = {k: sum(t for n, t in by_name.items() if any(m in n for m in ms))
+          for k, ms in KERNEL_NAMES.items()}
+    by["other"] = sum(by_name.values()) - sum(by.values())
+    if not sum(by.values()):
+        raise AssertionError("the profiler saw no device time")
+    return by, [(n[:80], t) for n, t in by_name.most_common(8)]
+
+
+def profile_prefill(eng, cfg, rng) -> dict:
+    """Where a prefill chunk's time goes: one request of 17 chunks of 256
+    seeded tokens; the chunk at position 3584 is timed on the host
+    unprofiled, the next, at 3840, runs under torch.profiler (CUDA
+    activity only). The request is cancelled before it decodes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = rng.integers(0, cfg.n_vocab, 17 * 256 + 1).tolist()
+    eng.submit(prompt, n_predict=1, request_id="profile_prefill", reuse_prefix=False)
+    for _ in range(14):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    eng.cancel("profile_prefill")
+    by, top = device_ms(prof)
+    busy = sum(by.values())
+    return {"chunk_tokens": 256, "position": 3840, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / (wall * 1e3),
+            "device_ms": by, "top_kernels_ms": top}
+
+
 def profile_decode(eng, prompts) -> dict:
     """Where a decode step's time goes, with all 4 slots decoding: the host
     wall time of one unprofiled step_fused chunk (8 steps), then the device
@@ -550,7 +699,6 @@ def profile_decode(eng, prompts) -> dict:
     against the first chunk's wall time, so the profiler's own host
     overhead does not count as idle."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for p in prompts[:4]:
@@ -562,6 +710,8 @@ def profile_decode(eng, prompts) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = max(Counter(e.slot_id for e in events).values(), default=0)
+    if steps != 8:
+        raise AssertionError(f"the timed chunk ran {steps} decode steps, not 8")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         events = eng.step_fused(max_chunk=8)
@@ -569,22 +719,10 @@ def profile_decode(eng, prompts) -> dict:
         prof_wall = time.perf_counter() - t0
     if max(Counter(e.slot_id for e in events).values(), default=0) != steps:
         raise AssertionError("the profiled chunk ran another number of steps")
-    by_name: Counter = Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    names = {"qgemv": ("qgemv_kernel",), "kv_write": ("kv_write_kernel",),
-             "flash_decode": ("decode_split", "decode_combine"),
-             "flash_prefill": ("prefill_kernel",)}
-    by = {k: sum(t for n, t in by_name.items() if any(m in n for m in ms))
-          for k, ms in names.items()}
-    by["other"] = sum(by_name.values()) - sum(by.values())
-    top = [(n[:80], t) for n, t in by_name.most_common(8)]
+    by, top = device_ms(prof)
     while any(s.state.name != "IDLE" for s in eng.slots):
         eng.step_fused(max_chunk=8)
     busy = sum(by.values())
-    if not busy:
-        raise AssertionError("the profiler saw no device time")
     return {"steps": steps, "wall_ms": wall * 1e3, "profiled_wall_ms": prof_wall * 1e3,
             "device_busy_ms": busy, "device_idle_share": 1 - busy / (wall * 1e3),
             "device_ms": by, "top_kernels_ms": top}
@@ -740,6 +878,10 @@ def phase_long(dev, report: dict, cfg, params) -> dict:
     long["profile_plain_attention"] = profile_decode(eng, prompts)
     log("8B long decode chunk profile, plain attention",
         json.dumps(long["profile_plain_attention"]))
+    # last, since its request takes over a slot and that slot's cached prefix
+    eng.opts = dataclasses.replace(eng.opts, attn_impl="kernel")
+    long["profile_prefill"] = profile_prefill(eng, cfg, rng)
+    log("8B long prefill chunk profile", json.dumps(long["profile_prefill"]))
     del eng
     torch.cuda.empty_cache()
 
@@ -781,7 +923,7 @@ def main() -> int:
         from prima_tpu_torch.ops import attention as attn
         from prima_tpu_torch.ops import kv_write as kvw
         from prima_tpu_torch.quant import qmatmul as qm
-        from prima_tpu_torch.utils import nvcc
+        from prima_tpu_torch.utils import hbm_probe, nvcc
     except ImportError as e:
         print(f"chip_smoke: run it from the repository root ({e})", file=sys.stderr)
         return 1
@@ -803,9 +945,14 @@ def main() -> int:
         "flash_prefill": {"name": "flash_prefill", "route": "cuda",
                           "source": "prima_tpu_torch/" + attn.PREFILL_SOURCE,
                           "replaces": "prima_tpu/ops/attention_pallas.py:32 _attn_kernel"},
+        "hbm_probe": {"name": "hbm_probe", "route": "cuda",
+                      "source": "prima_tpu_torch/" + hbm_probe.SOURCE,
+                      "replaces": "tools/probe_hbm.py:25 _stream_kernel "
+                                  "(also bench.py:345)"},
     }
     t0 = time.time()
-    logs = nvcc.build([qm.SOURCE, kvw.SOURCE, attn.DECODE_SOURCE, attn.PREFILL_SOURCE])
+    logs = nvcc.build([qm.SOURCE, kvw.SOURCE, attn.DECODE_SOURCE, attn.PREFILL_SOURCE,
+                       hbm_probe.SOURCE])
     log(f"build: {time.time() - t0:.1f} s")
     for src, text in logs.items():
         for line in text.splitlines():
@@ -821,7 +968,7 @@ def main() -> int:
         phase_tiny_parity(report)
         log(f"server: {time.time() - t0:.1f} s")
     # launches are counted only by the main path's run: the long phase,
-    # which runs all four kernels
+    # which runs all four model kernels; the probe's by its own entry point
     launches = dict.fromkeys(("qgemv", "kv_write", "flash_decode", "flash_prefill"))
     if phases & {"full", "long"}:
         cfg, params = weights_8b(dev)
@@ -833,6 +980,7 @@ def main() -> int:
         t0 = time.time()
         launches = phase_long(dev, report, cfg, params)
         log(f"long: {time.time() - t0:.1f} s")
+    launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

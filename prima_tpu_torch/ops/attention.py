@@ -19,10 +19,18 @@ Kernel notes.
   small kernel merges the chunks.
 - `flash_prefill` launches ops/cuda/flash_attn.cu, which replaces
   prima_tpu/ops/attention_pallas.py:_attn_kernel (entry flash_attention,
-  s_q > 8). At prefill it is bound by operations, which it runs as f32
-  FMAs on the CUDA cores from shared-memory tiles; it reads the cache's
-  natural layout through its strides (no transpose copy) and stops at each
-  row tile's last visible cell.
+  s_q > 8). At prefill it is bound by operations. For bf16 tensors both
+  products run on the tensor cores (mma.sync.m16n8k16, f32 accumulators,
+  f32 softmax in registers, P rounded to bf16 for P.V); K/V tiles of 64
+  cells are copied asynchronously (cp.async, two stages) from the cache's
+  natural layout and strides into swizzled bf16 shared memory, with no
+  transpose copy. f32 tensors keep exact f32 FMAs on the CUDA cores. Both
+  split the KV axis over `prefill_n_split` blocks (interleaved tiles, so
+  the split is even wherever the positions lie; chosen from the shapes
+  alone), merge the parts in a second kernel from f32 scratch, stop at each
+  row tile's last visible cell and mask only the tiles that cross a
+  position. `flash_prefill_split_plain` is that split and merge in plain
+  PyTorch.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ NEG_INF = -1e30
 DECODE_SOURCE = "ops/cuda/flash_decode.cu"
 PREFILL_SOURCE = "ops/cuda/flash_attn.cu"
 SPLIT = 256  # KV cells per split-K chunk of flash_decode
+PREFILL_ROWS = 64  # folded query rows per block of flash_attn.cu
+PREFILL_SLOTS = 2 * 132  # blocks the card holds at once: 2 on each of 132 SMs
+PREFILL_MAX_SPLIT = 8  # each split costs f32 scratch, written and read once
 decode_launches = nvcc.LaunchCounter("flash_decode")
 prefill_launches = nvcc.LaunchCounter("flash_prefill")
 
@@ -87,6 +98,69 @@ def flash_prefill_plain(q, k, v, positions, scale: float) -> torch.Tensor:
     return _attend(q, k, v, positions, scale, None)
 
 
+def prefill_tile(dtype: torch.dtype) -> int:
+    """KV cells per tile of the prefill kernel: 64 on the tensor cores
+    (bf16), 32 on the CUDA cores (f32)."""
+    return 64 if dtype == torch.bfloat16 else 32
+
+
+def prefill_n_split(b: int, s: int, h: int, n_kv: int, t: int, tile: int) -> int:
+    """How many blocks share one row tile's walk over the KV axis: a pure
+    function of the shapes (no host sync on positions). The grid
+    B * KVH * row tiles * n_split fills the card's resident block slots
+    (two on each of 132 SMs) once and no more; every split keeps at least
+    4 of the cache's tiles, and at most 8 splits write scratch."""
+    blocks = b * n_kv * -(-(h // n_kv) * s // PREFILL_ROWS)
+    n_tiles = -(-t // tile)
+    return max(1, min(PREFILL_SLOTS // blocks, PREFILL_MAX_SPLIT, n_tiles // 4))
+
+
+def flash_prefill_split_plain(q, k, v, positions, scale: float, n_split: int,
+                              tile: int) -> torch.Tensor:
+    """What the prefill kernel computes with n_split > 1, in plain PyTorch:
+    split j of a row tile (64 folded rows) takes the KV tiles j, j + n_split,
+    ... below the row tile's last visible cell and keeps an online-softmax
+    part (m, l, acc); a split with no such tile stays empty; the parts are
+    merged in the order of their index."""
+    b, s_q, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    rows = g * s_q
+    dev = q.device
+    qf = q.float().reshape(b, s_q, n_kv, g, d).permute(0, 2, 3, 1, 4).reshape(b, n_kv, rows, d)
+    scores = torch.einsum("bkrd,btkd->bkrt", qf, k.float()) * scale
+    r = torch.arange(rows, device=dev)
+    cols = torch.arange(t, device=dev)
+    pos0 = positions[:, :1].long()  # (b, 1)
+    qpos = pos0 + r % s_q  # (b, rows)
+    # the row tile's last visible cell: pos0 + the largest r % S among its rows
+    r0 = r // PREFILL_ROWS * PREFILL_ROWS
+    s_last = r0 % s_q + (r0 + PREFILL_ROWS).clamp(max=rows) - 1 - r0
+    end = (pos0 + s_last.clamp(max=s_q - 1) + 1).clamp(max=t)  # (b, rows)
+    scores = torch.where((cols <= qpos[:, :, None])[:, None], scores, NEG_INF)
+    inside = cols < end[:, :, None]  # (b, rows, t)
+    vf = v.float()
+    parts = []
+    for j in range(n_split):
+        mine = (inside & ((cols // tile) % n_split == j))[:, None]  # (b, 1, rows, t)
+        active = mine.any(-1, keepdim=True)
+        sj = torch.where(mine, scores, float("-inf"))
+        m = torch.where(active, sj.max(-1, keepdim=True).values, NEG_INF)
+        p = torch.exp(sj - m)
+        parts.append((active, m, p.sum(-1, keepdim=True),
+                      torch.einsum("bkrt,btkd->bkrd", p, vf)))
+    m_all = torch.stack([m for _, m, _, _ in parts]).max(0).values
+    l = torch.zeros_like(m_all)
+    acc = torch.zeros_like(parts[0][3])
+    for active, m, lj, aj in parts:  # an empty split has weight 0
+        w = torch.where(active, torch.exp(m - m_all), 0.0)
+        l = l + lj * w
+        acc = acc + aj * w
+    out = acc / l.clamp(min=1e-30)
+    return (out.reshape(b, n_kv, g, s_q, d).permute(0, 3, 1, 2, 4)
+            .reshape(b, s_q, h, d).to(q.dtype))
+
+
 def _check(q, k, v, positions, name: str) -> None:
     if not (q.device == k.device == v.device == positions.device):
         raise ValueError(f"{name}: q, k, v and positions must share a device")
@@ -127,8 +201,9 @@ def _decode_lib():
 def _prefill_lib():
     fn = nvcc.load(PREFILL_SOURCE).prima_flash_prefill
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 4
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -162,19 +237,34 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  positions: torch.Tensor, scale: float) -> torch.Tensor:
+                  positions: torch.Tensor, scale: float,
+                  n_split: int | None = None) -> torch.Tensor:
     """Prefill attention (any s_q). CUDA tensors launch the kernel (or
-    raise); CPU tensors take `flash_prefill_plain`."""
+    raise): tensor cores for bf16, CUDA cores for f32, the KV axis split
+    over `prefill_n_split` blocks unless `n_split` says otherwise. CPU
+    tensors take `flash_prefill_plain`."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, positions, scale)
     _check(q, k, v, positions, "flash_prefill")
     b, s, h, d = q.shape
     t, n_kv = k.shape[1], k.shape[2]
+    if n_split is None:
+        n_split = prefill_n_split(b, s, h, n_kv, t, prefill_tile(q.dtype))
+    if not 1 <= n_split <= 64:
+        raise ValueError(f"flash_prefill: n_split {n_split}")
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if n_split > 1:
+        rows = (h // n_kv) * s
+        part_acc = torch.empty((b * n_kv, n_split, rows, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b * n_kv, n_split, rows, 2), dtype=torch.float32,
+                              device=q.device)
+    ptr = lambda a: None if a is None else a.data_ptr()
     rc = _prefill_lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), d, b, s, h, n_kv, t, k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(scale),
+        ptr(part_acc), ptr(part_ml), int(q.dtype == torch.bfloat16), d, b, s, h, n_kv, t,
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), n_split, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     nvcc.check(rc, "flash_prefill launch")
     prefill_launches.count += 1

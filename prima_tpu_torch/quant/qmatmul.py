@@ -4,13 +4,25 @@ Kernel note. `qgemv` launches quant/cuda/qmatmul.cu, which replaces
 prima_tpu/quant/pallas/qmatmul.py:_qmm_kernel (entry qmatmul_pallas). On
 the H100 it is bound by device-memory bytes: a decode step reads every
 packed weight once (about 4.2 GB for an 8B Q4_K model, about 1.26 ms at
-3.35 TB/s). Its design gives each warp two rows, reads them as 16-byte
-chunks in natural column order with the next chunk's bytes in flight,
-turns quants into floats with one byte permute and one subtract, forms
-each weight with one fma (within one rounding of `dequant`), and
-accumulates in f32; see the source for the rest. The JAX package's sigma
-column permutation, tile repeats, 8-row padding and VMEM knobs have no
-counterpart: they only serve the TPU.
+3.35 TB/s), so the work the SM spends per weight decides how near it gets.
+Its design: a block owns 128 rows and one slice of K; the activations are
+staged once per block in shared memory; the weights stream through a
+3-stage cp.async ring in shared memory; the scale is factored out of the
+inner loop, sum_k (q_k sc_s + bias_s) x_k = sc_s sum_k q_k x_k + bias_s X_s,
+with the sums X_s of x taken once per block (`qmatmul_factored_plain` is
+that arithmetic in plain PyTorch); K is split over blocks (`gemv_split`)
+so that narrow matrices fill the card and the staged slice of x fits; the
+slices write their parts to scratch and the block that finishes a row
+block last adds them in the order of their index (an integer arrival
+counter per row block, kept per stream by this module, zero between
+launches), so the same bits come out on every run. nib4 weights (Q4_K, Q4_0, Q4_1) run
+on the tensor cores: nibbles are exact in bf16, x is split into a bf16
+high and low part (residual <= 2^-17 |x|, inside the 1e-4 tolerance),
+accumulators are f32. int8 weights stay exact in f32 on the CUDA cores,
+where a lane owns two rows and x is read as broadcast float4s. More than
+8 rows run in passes of 8. The JAX package's sigma column permutation,
+tile repeats, 8-row padding and VMEM knobs have no counterpart: they only
+serve the TPU.
 """
 
 from __future__ import annotations
@@ -20,12 +32,17 @@ import ctypes
 import torch
 
 from ..utils import nvcc
-from .qtensor import QTensor, qmatmul_plain
+from .qtensor import QTensor, eff_scales, qmatmul_plain, unpack_q
 
 SOURCE = "quant/cuda/qmatmul.cu"
 launches = nvcc.LaunchCounter("qgemv")
 MAX_B = 32  # rows at or above this take dequant + one matmul
 _SMODE = {"flat": 0, "grouped": 1, "packed": 2}
+ROW_BLOCK = 128  # output rows per block of qmatmul.cu
+STAGE_BYTES = 128  # bytes of a row per pipeline stage: slices are multiples
+X_STAGE_FLOATS = 8192  # floats of x a block stages (32 KB)
+MAX_SLICE_BYTES = 1024  # a longer slice's scale words do not fit their staging area
+TARGET_BLOCKS = 132  # one block on each of the H100's 132 SMs
 
 
 def scale_mode(qt: QTensor) -> str:
@@ -34,11 +51,59 @@ def scale_mode(qt: QTensor) -> str:
     return "packed" if qt.packed else "grouped"
 
 
+def gemv_split(n: int, row_bytes: int, b: int, layout: str) -> tuple[int, int]:
+    """(ksplit, ksb): the number of K slices and the bytes of each row in a
+    slice, a pure function of the shapes. A slice is a multiple of 128
+    bytes and small enough that the block's part of x fits its 32 KB
+    staging area (nib4: both nibble halves of 4 or 8 batch rows; int8:
+    min(B, 8) rows rounded up to a power of two) and its scale words
+    theirs (1024 bytes at most). Within that, the slices are as many as
+    keep the grid at one block an SM (measured faster than two: the merge
+    grows with the slices)."""
+    if layout == "nib4":
+        halves, nb = 2, 4 if b <= 4 else 8
+    else:
+        halves, nb = 1, min(8, 1 << (b - 1).bit_length())
+    max_ksb = min(MAX_SLICE_BYTES,
+                  X_STAGE_FLOATS // (halves * nb) // STAGE_BYTES * STAGE_BYTES)
+    want = max(1, TARGET_BLOCKS // -(-n // ROW_BLOCK))  # slices that fill the SMs once
+    ksb = -(-(-(-row_bytes // want)) // STAGE_BYTES) * STAGE_BYTES
+    ksb = max(STAGE_BYTES, min(max_ksb, ksb))
+    return -(-row_bytes // ksb), ksb
+
+
+def qmatmul_factored_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: per sub-block s,
+    y += sc_s * sum_k q_k x_k + bias_s * X_s with X_s = sum_{k in s} x_k and
+    bias_s = q_offset * sc_s - min_s. x (B, K) f32 -> (B, N) f32."""
+    sc, mn = eff_scales(qt, qt.scales, qt.mins, qt.d, qt.dmin)  # (N, S)
+    q = unpack_q(qt, qt.qs) - qt.q_offset  # stored integers, (N, K)
+    bias = qt.q_offset * sc - (mn if mn is not None else 0.0)
+    n_sub = sc.shape[-1]
+    xs = x.float().reshape(x.shape[0], n_sub, qt.sub)
+    dots = torch.einsum("nsk,bsk->bns", q.reshape(q.shape[0], n_sub, qt.sub), xs)
+    return (dots * sc).sum(-1) + xs.sum(-1) @ bias.t()
+
+
+_done: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _done_counters(device: torch.device, stream: int, n_blocks: int) -> torch.Tensor:
+    """The split-K arrival counters of one stream: one int32 per block of
+    128 rows, zero between launches (the kernel wraps each back to 0)."""
+    key = (device.index or 0, stream)
+    buf = _done.get(key)
+    if buf is None or buf.numel() < n_blocks:
+        buf = _done[key] = torch.zeros(max(4096, n_blocks), dtype=torch.int32,
+                                       device=device)
+    return buf
+
+
 def _lib():
     lib = nvcc.load(SOURCE)
     fn = lib.prima_qgemv
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -50,11 +115,11 @@ def _check(x: torch.Tensor, qt: QTensor) -> None:
     if not 1 <= x.shape[0] <= MAX_B or x.shape[1] != k:
         raise ValueError(f"qgemv: x {tuple(x.shape)} against weight ({n}, {k})")
     pow2 = lambda v: v > 0 and v & (v - 1) == 0
-    if (qt.sub % 16 or not pow2(qt.sub) or not pow2(qt.gsub) or k % qt.sub
-            or k % (32 if qt.layout == "nib4" else 16)):
+    if (qt.sub not in (16, 32) or not pow2(qt.gsub) or k % qt.sub
+            or k % (64 if qt.layout == "nib4" else 32)):
         raise ValueError(f"qgemv: unsupported sub={qt.sub} gsub={qt.gsub} K={k}")
-    if qt.layout == "nib4" and (k // 2) % qt.sub:
-        raise ValueError("qgemv: nib4 halves must start on a sub-block")
+    if qt.layout == "nib4" and ((k // 2) % qt.sub or qt.sub != 32):
+        raise ValueError("qgemv: nib4 halves must start on a sub-block of 32")
     for a in (x, *qt.tensors()):
         if a is None:
             continue
@@ -63,20 +128,34 @@ def _check(x: torch.Tensor, qt: QTensor) -> None:
                              "aligned and on one device")
 
 
-def qgemv(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qgemv(x: torch.Tensor, qt: QTensor, ksplit: int | None = None) -> torch.Tensor:
     """x (B, K) f32, B <= 32 -> (B, N) f32. A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes `qmatmul_plain`, the kernel's
+    kernel (or raises), K cut into `gemv_split` slices unless `ksplit` asks
+    for another number; a CPU tensor takes `qmatmul_plain`, the kernel's
     function in plain PyTorch."""
     if x.device.type == "cpu":
         return qmatmul_plain(x, qt)
     _check(x, qt)
     b, n, k = x.shape[0], qt.n_rows, qt.n_cols
+    row_bytes = qt.qs.shape[1]
+    n_slices, ksb = gemv_split(n, row_bytes, b, qt.layout)
+    if ksplit is not None:  # fewer slices than the staging area allows cannot run
+        ksb = -(-(-(-row_bytes // ksplit)) // STAGE_BYTES) * STAGE_BYTES
+        if not 1 <= ksplit or ksb > gemv_split(1 << 30, row_bytes, b, qt.layout)[1] \
+                or -(-row_bytes // ksb) != ksplit:
+            raise ValueError(f"qgemv: cannot cut {row_bytes} bytes a row into {ksplit}")
+        n_slices = ksplit
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part = done = None
+    if n_slices > 1:
+        part = torch.empty((n_slices, min(b, 8), n), dtype=torch.float32, device=x.device)
+        done = _done_counters(x.device, stream, -(-n // ROW_BLOCK))
     ptr = lambda a: None if a is None else a.data_ptr()
     rc = _lib()(ptr(x), ptr(qt.qs), ptr(qt.scales), ptr(qt.mins), ptr(qt.d),
-                ptr(qt.dmin), ptr(out), b, n, k,
+                ptr(qt.dmin), ptr(out), ptr(part), ptr(done), b, n, k,
                 0 if qt.layout == "nib4" else 1, qt.sub, qt.gsub, qt.q_offset,
-                _SMODE[scale_mode(qt)], torch.cuda.current_stream(x.device).cuda_stream)
+                _SMODE[scale_mode(qt)], ksb, n_slices, stream)
     nvcc.check(rc, "qgemv launch")
     launches.count += 1
     return out

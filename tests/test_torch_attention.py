@@ -88,6 +88,40 @@ def test_bf16_matches_jax(s):
     _compare(*_inputs(2, s, 128, 8, 2, 64, seed=s), _contiguous([5, 100], s), "bfloat16")
 
 
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+@pytest.mark.parametrize("b,s,t,h,kvh,d,pos0,tile", [
+    (2, 16, 1024, 4, 2, 64, [3, 600], 64),    # later splits empty for row 0
+    (1, 40, 512, 8, 2, 64, [100], 32),        # 160 folded rows: 3 row tiles, one ragged
+    (2, 9, 256, 4, 4, 32, [0, 247], 32),      # position 0 and the cache's end
+])
+def test_split_and_merge_matches_jax(b, s, t, h, kvh, d, pos0, tile, n_split):
+    """The KV split of the prefill kernel in plain PyTorch (interleaved
+    tiles, parts merged in order, splits past the visible prefix empty)
+    against the Pallas kernel, f32, within 2e-5 * max(1, max |ref|)."""
+    q, k, v = _inputs(b, s, t, h, kvh, d, seed=n_split + t)
+    positions = _contiguous(pos0, s)
+    scale = 1.0 / np.sqrt(d)
+    want = np.asarray(jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(positions), scale))
+    got = attn.flash_prefill_split_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(positions), scale, n_split, tile).numpy()
+    assert np.abs(got - want).max() <= F32_TOL * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape,tile,want", [
+    ((1, 256, 32, 8, 8192), 64, 2),   # the 8B chunk: 128 row-tile blocks -> 256
+    ((1, 129, 32, 8, 8192), 64, 3),   # the ragged 8B chunk: 72 blocks -> 216
+    ((1, 64, 4, 4, 256), 32, 2),      # the tiny pair: a split keeps 4 tiles
+    ((4, 256, 32, 8, 8192), 64, 1),   # 512 blocks fill the card without a split
+    ((2, 9, 32, 8, 8192), 64, 8),     # few rows: the cap of 8
+], ids=["8b-256", "8b-129", "tiny-pair", "8b-batch-4", "s9"])
+def test_prefill_n_split_is_a_pure_function_of_the_shapes(shape, tile, want):
+    assert attn.prefill_n_split(*shape, tile) == want
+    assert attn.prefill_n_split(*shape, tile) == want  # no state between calls
+    assert attn.prefill_tile(torch.bfloat16) == 64 and attn.prefill_tile(torch.float32) == 32
+
+
 def test_check_rejects_what_the_kernels_cannot_take():
     q = torch.zeros(2, 1, 8, 64)
     k = torch.zeros(2, 16, 2, 64)

@@ -21,6 +21,7 @@ from prima_tpu_torch.ops import kvquant as kvq
 from prima_tpu_torch.quant import qmatmul as qm
 from prima_tpu_torch.quant.device_format import SUPPORTED_TYPES, to_device_format
 from prima_tpu_torch.quant.qtensor import QTensor
+from prima_tpu_torch.utils import hbm_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +78,33 @@ def test_qgemv_on_gguf_blocks(dev, t, b):
     torch.cuda.synchronize()
     assert qm.launches.count == before + 1
     assert (y - ref).abs().max().item() <= GEMV_TOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 31])
+@pytest.mark.parametrize("t,n,k,ksplits", [
+    (GGMLType.Q4_K, 300, 4096, (None, 2, 4, 16)),   # nib4, packed scales, ragged N
+    (GGMLType.Q4_0, 256, 2048, (None, 1, 8)),        # nib4, flat scales
+    (GGMLType.Q6_K, 130, 2048, (None, 4, 16)),       # int8, sub-blocks of 16
+    (GGMLType.Q8_0, 1024, 4096, (None, 8, 32)),      # int8, flat scales, the narrow 8B N
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_qgemv_split_k_matches_plain_and_repeats(dev, t, n, k, ksplits, b):
+    """Every cut of K the staging area allows gives the plain version's
+    answer, and the same bits on every run (the parts are merged in a
+    fixed order, with no float atomics)."""
+    qt = _weights(dev, t, n, k, seed=b)
+    x = torch.randn(b, k, device=dev)
+    ref = qm.qmatmul_plain(x, qt)
+    for ksplit in ksplits:
+        try:
+            y = qm.qgemv(x, qt, ksplit=ksplit)
+        except ValueError:  # fewer slices than the staged slice of x allows
+            assert ksplit is not None and ksplit < qm.gemv_split(1 << 30, qt.qs.shape[1],
+                                                                 b, qt.layout)[0]
+            continue
+        again = [qm.qgemv(x, qt, ksplit=ksplit) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert (y - ref).abs().max().item() <= GEMV_TOL * ref.abs().max().item()
+        assert all(torch.equal(y, a) for a in again)
 
 
 def test_qmatmul_routes_wide_inputs_to_plain(dev):
@@ -230,3 +258,41 @@ def test_quantized_update_kv_matches_cpu(dev, kind):
     torch.cuda.synchronize()
     assert torch.equal(caches[0].qs, caches[1].qs.cpu())
     assert torch.equal(caches[0].scale, caches[1].scale.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("b,s,h,kvh,d,t,pos0", [
+    (1, 256, 32, 8, 128, 2048, [1500]),   # an 8B chunk: whole row tiles
+    (2, 129, 8, 2, 128, 1024, [0, 700]),  # ragged rows; position 0 leaves later splits empty
+    (2, 9, 4, 4, 64, 512, [100, 503]),    # S = 9 up to the cache's end, D = 64
+])
+def test_flash_prefill_splits_match_plain(dev, b, s, h, kvh, d, t, pos0, n_split, dtype):
+    """Any split of the KV axis gives the plain version's answer, and cells
+    past each prefix (NaN here) are never read."""
+    q, k, v, pos = _attn_inputs(dev, b, s, h, kvh, d, t, pos0, dtype, seed=n_split)
+    for i, p0 in enumerate(pos0):
+        k[i, p0 + s:] = 0
+        v[i, p0 + s:] = 0
+    want = attn.flash_prefill_plain(q, k, v, pos, 0.125)
+    for i, p0 in enumerate(pos0):
+        k[i, p0 + s:] = float("nan")
+        v[i, p0 + s:] = float("nan")
+    before = attn.prefill_launches.count
+    got = attn.flash_prefill(q, k, v, pos, 0.125, n_split=n_split)
+    again = attn.flash_prefill(q, k, v, pos, 0.125, n_split=n_split)
+    torch.cuda.synchronize()
+    assert attn.prefill_launches.count == before + 2
+    assert (got.float() - want.float()).abs().max().item() <= _attn_tol(want, dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("nbytes", [16, 4096 + 16, 1 << 26])
+def test_hbm_probe_sum_is_exact(dev, nbytes):
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (nbytes // 4,), dtype=torch.int32, device=dev)
+    before = hbm_probe.launches.count
+    got = hbm_probe.read_sum(x)
+    assert hbm_probe.launches.count == before + 1
+    assert int(got) == int(hbm_probe.read_sum_plain(x))
+    with pytest.raises(ValueError):
+        hbm_probe.read_sum(x[1:])  # not 16-byte aligned
