@@ -11,7 +11,12 @@ Phases, each of which fails the run on any error or mismatch:
                its bound and the library call that computes the same
                function, where there is one: the GEMV at B = 1, 4, 8, 31 and
                at the narrow split-K shapes (N = 1024, N = 256); the KV
-               write; flash decode; flash prefill in bf16 and f32 at 256 rows
+               write at the shapes of the server's slot restore (int8 codes
+               and f32 scales into a one-slot view) and at 8B rows (exact
+               bits); the fused KV store of a layer over dense, q8_0 and
+               q4_0 caches (exact bits); flash decode over dense, q8_0 and
+               q4_0 caches, NaN past each visible prefix, four runs with
+               equal bits; flash prefill in bf16 and f32 at 256 rows
                at positions 0, 3840 and 7936 of 8192, 129 rows, 9 rows and
                the tiny pair's head of 64, the cells past each prefix filled
                with NaN; the device-memory read probe over 1 GiB (exact),
@@ -22,21 +27,28 @@ Phases, each of which fails the run on any error or mismatch:
                --slot-save-path (then slot 0 saved and restored into slot
                1); then the Engine's greedy streams on the card (every
                kernel) against the CPU (plain path), in f32: the default
-               path, flash attention, flash attention over a q8_0 cache,
-               and flash attention under Self-Extend.
+               path, flash attention, flash attention over a q8_0 and
+               over a q4_0 cache, and flash attention under Self-Extend.
   4. full    — the Llama-3-8B shape with Q4_K weights generated on the card:
                Engine(n_slots=4, max_seq=2048) serves 8 requests through
                submit + step_fused(max_chunk=8); the kernels' launch counts
                of this run; one decode step's logits, kernels vs plain.
   5. long    — the same weights, Engine(n_slots=4, max_seq=8192,
                attn_impl="kernel") serves 4 requests of ~4000 prompt tokens
-               and 32 greedy tokens; the launch counts of all four kernels
+               and 32 greedy tokens; the launch counts of the model kernels
                in this run; a prefill chunk at position 3840 and a decode
                chunk profiled, the latter with flash and with plain
-               attention; one decode step near position 4000 over f32
-               caches, every kernel against every plain version.
-The device-memory probe is on no serving path: its launches are those of its
-own entry point, hbm_probe.measure, run with its count set to 0 before.
+               attention; then a second engine with a q8_0 cache
+               (kv_dtype="q8_0") serves 4 such requests of 16 greedy tokens,
+               with its launch counts and a profiled decode chunk in which
+               no quantized cache may be materialized; one decode step near
+               position 4000 over f32 caches and over seeded q8_0 caches,
+               every kernel against every plain version.
+The decoder writes K and V through the fused KV store; the byte-generic KV
+write runs where a saved slot is restored, so its launches are the server's
+(phase 3). The device-memory probe is on no serving path: its launches are
+those of its own entry point, hbm_probe.measure, run with its count set to 0
+before.
 
 Output: one line per case and phase, then a {"kernels": [...]} JSON line,
 the card's name and power limit from nvidia-smi, and last
@@ -48,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import http.client
 import json
 import os
@@ -209,46 +222,66 @@ def phase_kernels(dev, report: dict) -> None:
     report["qgemv"]["max_rel_err"] = worst[1]
     report["qgemv"]["tolerance"] = f"max|err| <= {GEMV_TOL} * max|plain| (f32)"
 
+    # (label, slots of the cache, B, S, T, a cell's shape, dtype, pos); the
+    # first two are the launches of the main path: a slot of 59 saved cells
+    # restored into slot 1 of the tiny pair's q8_0 cache (4 KV heads of 64,
+    # 512 cells, 4 slots), int8 codes and f32 scales written at cell 0 of a
+    # one-slot view. The 8B shapes are the decoder's of earlier versions.
     kcases = []
-    for label, b, s, t_, p, dt, pos in [
-            ("8B decode", 4, 1, 2048, 1024, torch.bfloat16, [5, 700, 2047, 1300]),
-            ("8B prefill (slot row)", 1, 128, 2048, 1024, torch.bfloat16, [256]),
-            ("8B prefill 256 (slot row)", 1, 256, 2048, 1024, torch.bfloat16, [0]),
-            ("clamp at T-S", 4, 8, 2048, 1024, torch.bfloat16, [2045, 0, 3000, 17]),
-            ("tiny-pair decode f32", 4, 1, 512, 256, torch.float32, [0, 1, 2, 511]),
-            ("draft decode P=128", 4, 1, 512, 128, torch.bfloat16, [3, 9, 27, 81])]:
-        caches = [torch.randn((b, t_, p), generator=gen, device=dev).to(dt)
-                  for _ in range(copies_for(b * s * p * 2 * 2))]
-        new = torch.randn((b, s, p), generator=gen, device=dev).to(dt)
+    for label, slots, b, s, t_, cell, dt, pos in [
+            ("tiny-pair q8_0 slot restore, codes (main path)", 4, 1, 59, 512, (4, 64),
+             torch.int8, [0]),
+            ("tiny-pair q8_0 slot restore, scales (main path)", 4, 1, 59, 512, (4, 1),
+             torch.float32, [0]),
+            ("8B decode", 4, 4, 1, 2048, (1024,), torch.bfloat16, [5, 700, 2047, 1300]),
+            ("8B prefill (slot row)", 1, 1, 128, 2048, (1024,), torch.bfloat16, [256]),
+            ("8B prefill 256 (slot row)", 1, 1, 256, 2048, (1024,), torch.bfloat16, [0]),
+            ("clamp at T-S", 4, 4, 8, 2048, (1024,), torch.bfloat16, [2045, 0, 3000, 17]),
+            ("tiny-pair decode f32", 4, 4, 1, 512, (256,), torch.float32, [0, 1, 2, 511]),
+            ("draft decode P=128", 4, 4, 1, 512, (128,), torch.bfloat16, [3, 9, 27, 81])]:
+
+        def rand(*shape):
+            if dt == torch.int8:
+                return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=dt)
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+        new = rand(b, s, *cell)
+        nbytes = 2 * new.numel() * new.element_size()
+        # a one-slot view (slot 1) where the cache has more slots than rows written
+        view = (lambda c: c[1:1 + b]) if slots > b else (lambda c: c)
+        caches = [rand(slots, t_, *cell) for _ in range(copies_for(nbytes))]
         pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
-        want = kvw.kv_write_plain(caches[0].clone(), new, pos_t)
-        got = kvw.kv_write(caches[0].clone(), new, pos_t)
+        want, got = caches[0].clone(), caches[0].clone()
+        kvw.kv_write_plain(view(want), new, pos_t)
+        kvw.kv_write(view(got), new, pos_t)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         rows = (kvw.write_starts(pos_t, t_, s)[:, None]
                 + torch.arange(s, device=dev)
                 + torch.arange(b, device=dev)[:, None] * t_).reshape(-1)
-        flat_new = new.reshape(b * s, p)
-        ms = time_ms(kvw.kv_write, [(c, new, pos_t) for c in caches])
-        plain = time_ms(kvw.kv_write_plain, [(c, new, pos_t) for c in caches])
-        lib = time_ms(lambda c: c.view(b * t_, p).index_copy_(0, rows, flat_new),
+        flat_new = new.reshape(b * s, -1)
+        ms = time_ms(kvw.kv_write, [(view(c), new, pos_t) for c in caches])
+        plain = time_ms(kvw.kv_write_plain, [(view(c), new, pos_t) for c in caches])
+        lib = time_ms(lambda c: view(c).view(b * t_, -1).index_copy_(0, rows, flat_new),
                       [(c,) for c in caches])
-        nbytes = 2 * new.numel() * new.element_size()
-        case = {"shape": label, "B": b, "S": s, "T": t_, "P": p, "dtype": str(dt),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                "bytes": nbytes}
+        case = {"shape": label, "slots": slots, "B": b, "S": s, "T": t_, "cell": list(cell),
+                "dtype": str(dt), "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": nbytes}
         kcases.append(case)
-        log(f"kv_write {label:26s} err {err} ms {ms:.4f} plain {plain:.4f} "
+        log(f"kv_write {label:48s} err {err} ms {ms:.4f} plain {plain:.4f} "
             f"index_copy_ {lib:.4f} bound {case['bound_ms']:.6f}")
         if err != 0.0:
             raise AssertionError(f"kv_write {label}: max |err| {err} (must be exact)")
     report["kv_write"]["cases"] = kcases
     report["kv_write"]["max_abs_err"] = max(c["max_abs_err"] for c in kcases)
     report["kv_write"]["tolerance"] = "exact"
-    # headline numbers: the decode launch of the 8B main path
+    # headline numbers: the larger launch of the main path, the codes of a
+    # restored slot (each restore writes codes and scales, K and V, per layer)
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
         report["kv_write"][key] = kcases[0][key]
+    report["kv_write"]["headline"] = kcases[0]["shape"]
+    phase_kv_store(dev, report, gen)
     step = [c for c in gcases if c["format"] == "Q4_K" and c["B"] == 4
             and c["N"] >= 1024 and c["K"] >= 4096]
     per_step = {"wq/wo": 64, "wk/wv": 64, "gate/up": 64, "down": 32, "head": 1}
@@ -275,6 +308,102 @@ def phase_kernels(dev, report: dict) -> None:
         f"{1e-6 / slope:.0f} GB/s (least squares over the five shapes)")
     phase_attention(dev, report)
     phase_probe(dev, report)
+
+
+def phase_kv_store(dev, report: dict, gen) -> None:
+    """The fused KV store of one layer against its plain version (update_kv
+    for K and for V), exact bits for dense values, codes and scales; its
+    time beside the two launches it replaces (two kv_write for a dense
+    cache, two update_kv for a quantized one) and two index_copy_."""
+    import torch
+
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.ops import kvquant as kvq
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, d = 8, 128
+    scases = []
+    for label, b, s, t_, kind, dt, pos in [
+            ("8B decode, bf16 cache (main path)", 4, 1, 8192, "dense", bf16,
+             [4000, 4031, 9000, 4060]),
+            ("8B decode, q8_0 cache (main path)", 4, 1, 8192, "q8_0", bf16,
+             [4000, 4031, 9000, 4060]),
+            ("8B decode, q4_0 cache", 4, 1, 8192, "q4_0", bf16, [4000, 4031, 9000, 4060]),
+            ("8B decode, f32 cache", 4, 1, 8192, "dense", f32, [4000, 4031, 9000, 4060]),
+            ("8B prefill 256 (slot row), bf16 cache", 1, 256, 8192, "dense", bf16, [3840]),
+            ("8B prefill 256 (slot row), q8_0 cache", 1, 256, 8192, "q8_0", bf16, [8000]),
+            ("8B prefill 256 (slot row), q4_0 cache", 1, 256, 8192, "q4_0", bf16, [3840]),
+            ("8B prefill 256 (slot row), f32 cache", 1, 256, 8192, "dense", f32, [8000])]:
+        shape = (b, t_, h, d)
+
+        def make():
+            if kind == "dense":
+                return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
+                             for _ in range(2))
+            cls = kvq.KVQ8 if kind == "q8_0" else kvq.KVQ4
+            return cls.zeros(shape, dev), cls.zeros(shape, dev)
+
+        parts = lambda c: (c.qs, c.scale) if kvq.is_quantized(c) else (c,)
+        k_new, v_new = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+                        for _ in range(2))
+        k_new[0, 0, 0] = 0  # a zero vector: scale 0
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        n_new = 2 * k_new.numel()
+        cell_bytes = {"dense": k_new.element_size(), "q8_0": 1 + 4 / d, "q4_0": 0.5 + 4 / d}
+        nbytes = int(n_new * (k_new.element_size() + cell_bytes[kind]))
+        caches = [make() for _ in range(copies_for(nbytes))]
+        got, want = caches[0], make()
+        if kind == "dense":
+            for g, w in zip(got, want):
+                w.copy_(g)
+        kvw.kv_store(*got, k_new, v_new, pos_t)
+        kvw.kv_store_plain(*want, k_new, v_new, pos_t)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(x, y) for g, w in zip(got, want)
+                    for x, y in zip(parts(g), parts(w)))
+        err = max((x.float() - y.float()).abs().max().item() for g, w in zip(got, want)
+                  for x, y in zip(parts(g), parts(w)))
+        ms = time_ms(kvw.kv_store, [(*c, k_new, v_new, pos_t) for c in caches])
+        plain = time_ms(kvw.kv_store_plain, [(*c, k_new, v_new, pos_t) for c in caches],
+                        reps=10)
+
+        def two_launches(kc, vc):  # what the decoder launched before the fused store
+            kvq.update_kv(kc, k_new, pos_t)
+            kvq.update_kv(vc, v_new, pos_t)
+
+        two = time_ms(two_launches, caches, reps=10)
+        lib = None
+        if kind == "dense":
+            rows = (kvw.write_starts(pos_t, t_, s)[:, None] + torch.arange(s, device=dev)
+                    + torch.arange(b, device=dev)[:, None] * t_).reshape(-1)
+            flat = [x.reshape(b * s, h * d) for x in (k_new, v_new)]
+
+            def two_index_copies(kc, vc):
+                kc.view(b * t_, h * d).index_copy_(0, rows, flat[0])
+                vc.view(b * t_, h * d).index_copy_(0, rows, flat[1])
+
+            lib = time_ms(two_index_copies, caches)
+        case = {"shape": label, "B": b, "S": s, "T": t_, "H": h, "D": d, "cache": kind,
+                "dtype": str(dt), "exact": exact, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "two_launches_ms": two, "library_ms": lib,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "bytes": nbytes}
+        scases.append(case)
+        log(f"kv_store {label:40s} exact {exact} ms {ms:.4f} plain {plain:.4f} "
+            f"two launches {two:.4f} 2 x index_copy_ "
+            f"{'none' if lib is None else format(lib, '.4f')} bound {case['bound_ms']:.6f}")
+        if not exact:
+            raise AssertionError(f"kv_store {label}: differs from its plain version "
+                                 f"(max |err| {err}; must be exact)")
+        del caches, got, want
+        torch.cuda.empty_cache()
+    r = report["kv_store"]
+    r["cases"] = scases
+    r["max_abs_err"] = max(c["max_abs_err"] for c in scases)
+    r["tolerance"] = "exact bits: dense values, codes and scales"
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "two_launches_ms"):
+        r[key] = scases[0][key]
+    r["headline"] = scases[0]["shape"] + "; library_ms is two index_copy_ calls"
 
 
 def phase_probe(dev, report: dict) -> None:
@@ -324,16 +453,21 @@ def attn_visible(pos0: list, s: int, t: int) -> tuple[int, int]:
     return pairs, cells
 
 
-def attn_bound(q_shape, kvh: int, t: int, pos0: list, esz: int, n_split: int = 1) -> dict:
+def attn_bound(q_shape, kvh: int, t: int, pos0: list, esz: int, n_split: int = 1,
+               cell_bytes: float | None = None) -> dict:
     """The least time for this data: the bytes of q, the output and the
-    visible K/V cells once over 3.35 TB/s (and, where the kernel splits the
-    KV axis, its f32 scratch written and read once), against the operations
+    visible K/V cells once over 3.35 TB/s (cell_bytes a (cell, head) vector
+    of K or V: D * esz for a dense cache, codes plus the f32 scale for a
+    quantized one; and, where the prefill kernel splits the KV axis, its
+    f32 scratch written and read once), against the operations
     the visible pairs need (4 * D a pair: q.k and p.v) over the peak of the
     inputs' type (bf16 tensor cores; f32 outside them). The f32 CUDA-core
     figure is kept beside it, since that is what the f32 kernels run on."""
     b, s, h, d = q_shape
     pairs, cells = attn_visible(pos0, s, t)
-    nbytes = 2 * b * s * h * d * esz + 2 * cells * kvh * d * esz
+    if cell_bytes is None:
+        cell_bytes = d * esz
+    nbytes = int(2 * b * s * h * d * esz + 2 * cells * kvh * cell_bytes)
     if n_split > 1:
         nbytes += 2 * n_split * b * s * h * (d + 2) * 4
     flops = 4 * d * h * pairs
@@ -359,6 +493,113 @@ def sdpa_call(q, k, v, pos0: list, scale: float):
                                                   enable_gqa=True)
 
 
+def attn_report(r: dict, out_cases: list) -> None:
+    r["cases"] = out_cases
+    r["max_abs_err"] = max(c["max_abs_err"] for c in out_cases)
+    r["tolerance"] = (f"f32: max|err| <= {ATTN_F32_TOL} * max(1, max|plain|); bf16: "
+                      f"max|err| <= {ATTN_BF16_TOL} * max|plain|")
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "f32_core_bound_ms", "bytes", "flops"):
+        r[key] = out_cases[0][key]
+    r["headline"] = out_cases[0]["shape"]
+
+
+def phase_decode_attention(dev, report: dict, gen) -> None:
+    """flash_decode against flash_decode_plain on cache.to(dtype), over
+    dense, q8_0 and q4_0 caches quantized from the same seeded values. The
+    kernel's caches hold NaN (NaN scales, for codes) in every cell past a
+    row's last query position, which it must not read; the plain version,
+    which reads all of T, gets zeros there. Each case runs four times and
+    the outputs must have equal bits."""
+    import torch
+
+    from prima_tpu_torch.ops import attention as attn
+    from prima_tpu_torch.ops import kvquant as kvq
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    long_pos = [4000, 4031, 3990, 4060]
+    # (label, B, S, H, KVH, D, T, dtype of q, cache kind, pos0 per batch row);
+    # the first case is the long phase's main path
+    cases = [
+        ("8B long decode (main path)", 4, 1, 32, 8, 128, 8192, bf16, "dense", long_pos),
+        ("8B long decode, q8_0 (main path)", 4, 1, 32, 8, 128, 8192, bf16, "q8_0", long_pos),
+        ("8B long decode, q4_0", 4, 1, 32, 8, 128, 8192, bf16, "q4_0", long_pos),
+        ("8B decode T=8192", 4, 1, 32, 8, 128, 8192, bf16, "dense", [5, 1000, 4095, 8191]),
+        ("8B decode S=4", 4, 4, 32, 8, 128, 8192, bf16, "dense", [5, 1000, 4092, 8188]),
+        ("8B decode S=4, q8_0", 4, 4, 32, 8, 128, 8192, bf16, "q8_0", [5, 1000, 4092, 8188]),
+        ("8B decode S=8, q4_0", 4, 8, 32, 8, 128, 8192, bf16, "q4_0", [5, 1000, 4092, 8184]),
+        ("8B decode T=2000", 4, 1, 32, 8, 128, 2000, bf16, "dense", [5, 700, 1999, 1300]),
+        ("tiny-pair decode f32", 4, 1, 4, 4, 64, 256, f32, "dense", [0, 1, 100, 255]),
+        ("tiny-pair decode f32, q8_0", 4, 1, 4, 4, 64, 256, f32, "q8_0", [0, 1, 100, 255]),
+        ("tiny-pair decode f32, q4_0", 4, 1, 4, 4, 64, 256, f32, "q4_0", [0, 1, 100, 255]),
+        ("tiny-pair decode bf16, q4_0", 4, 1, 4, 4, 64, 256, bf16, "q4_0", [0, 1, 100, 255])]
+    classes = {"q8_0": kvq.KVQ8, "q4_0": kvq.KVQ4}
+    out_cases = []
+    for label, b, s, h, kvh, d, t, dt, kind, pos0 in cases:
+        scale = 1.0 / d ** 0.5
+        esz = 2 if dt == bf16 else 4
+        cell_bytes = {"dense": d * esz, "q8_0": d + 4, "q4_0": d // 2 + 4}[kind]
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+        pos = (torch.tensor(pos0, dtype=torch.int32, device=dev)[:, None]
+               + torch.arange(s, dtype=torch.int32, device=dev))
+
+        def cache_pair(fill):
+            """K and V of this case's kind from fresh seeded values, `fill`
+            in the cells no row may see."""
+            pair = []
+            for _ in range(2):
+                x = torch.randn((b, t, kvh, d), generator=gen, device=dev).to(dt)
+                c = x if kind == "dense" else classes[kind](*classes[kind].quantize(x))
+                hide = c if kind == "dense" else c.scale
+                for i, p0 in enumerate(pos0):
+                    hide[i, p0 + s:] = fill
+                pair.append(c)
+            return tuple(pair)
+
+        state = gen.get_state()
+        kn, vn = cache_pair(float("nan"))
+        gen.set_state(state)  # the same values again, zeros where NaN was
+        k, v = cache_pair(0.0)
+        runs = [attn.flash_decode(q, kn, vn, pos, scale) for _ in range(4)]
+        want = attn.flash_decode_plain(q, k, v, pos, scale)
+        torch.cuda.synchronize()
+        got = runs[0]
+        same_bits = all(torch.equal(got, r) for r in runs[1:])
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        tol = ATTN_F32_TOL * max(1.0, ref) if dt == f32 else ATTN_BF16_TOL * ref
+        del kn, vn, runs
+        kvs = [(k, v)] + [cache_pair(0.0)
+                          for _ in range(copies_for(2 * b * t * kvh * cell_bytes) - 1)]
+        ms = time_ms(attn.flash_decode, [(q, k_, v_, pos, scale) for k_, v_ in kvs])
+        plain = time_ms(attn.flash_decode_plain, [(q, k_, v_, pos, scale) for k_, v_ in kvs[:2]],
+                        reps=5, per_rep=2)
+        # the library call on the same values: for a quantized cache, on the
+        # copy materialized outside the timed window
+        dense = [(k_.to(dt), v_.to(dt)) for k_, v_ in kvs[:4]]
+        lib = time_ms(lambda f: f(), [(sdpa_call(q, k_, v_, pos0, scale),) for k_, v_ in dense],
+                      reps=10, per_rep=4)
+        del dense
+        n_split, split_len = attn.decode_split(b, s, h, kvh, t, dt)
+        case = {"shape": label, "B": b, "S": s, "H": h, "KVH": kvh, "D": d, "T": t,
+                "dtype": str(dt), "cache": kind, "pos0": pos0, "max_abs_err": err,
+                "max_abs_ref": ref, "tolerance": tol, "same_bits_in_4_runs": same_bits,
+                "ms": ms, "plain_ms": plain, "library_ms": lib, "n_split": n_split,
+                "split_len": split_len,
+                **attn_bound(q.shape, kvh, t, pos0, esz, cell_bytes=cell_bytes)}
+        out_cases.append(case)
+        log(f"flash_decode {label:34s} err {err:.2e}/{ref:.2e} ms {ms:.4f} plain {plain:.4f} "
+            f"sdpa {lib:.4f} bound {case['bound_ms']:.4f} ({case['bound_by']}, "
+            f"{case['bytes'] / 1e6:.1f} MB)")
+        if not err <= tol:
+            raise AssertionError(f"flash_decode {label}: max |err| {err} > {tol}")
+        if not same_bits:
+            raise AssertionError(f"flash_decode {label}: four runs gave different bits")
+        del kvs, k, v
+        torch.cuda.empty_cache()
+    attn_report(report["flash_decode"], out_cases)
+
+
 def phase_attention(dev, report: dict) -> None:
     """flash_decode and flash_prefill against their plain versions."""
     import torch
@@ -367,90 +608,69 @@ def phase_attention(dev, report: dict) -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
+    phase_decode_attention(dev, report, gen)
     bf16, f32 = torch.bfloat16, torch.float32
     # (label, B, S, H, KVH, D, T, dtype, pos0 per batch row); the first
-    # case of each kernel is the long phase's main path
-    cases = {
-        "flash_decode": [
-            ("8B long decode (main path)", 4, 1, 32, 8, 128, 8192, bf16,
-             [4000, 4031, 3990, 4060]),
-            ("8B decode T=8192", 4, 1, 32, 8, 128, 8192, bf16, [5, 1000, 4095, 8191]),
-            ("8B decode S=4", 4, 4, 32, 8, 128, 8192, bf16, [5, 1000, 4092, 8188]),
-            ("8B decode T=2000", 4, 1, 32, 8, 128, 2000, bf16, [5, 700, 1999, 1300]),
-            ("tiny-pair decode f32", 4, 1, 4, 4, 64, 256, f32, [0, 1, 100, 255])],
-        "flash_prefill": [
-            ("8B prefill 256 at 3840 (main path)", 1, 256, 32, 8, 128, 8192, bf16, [3840]),
-            ("8B prefill 256 at 0", 1, 256, 32, 8, 128, 8192, bf16, [0]),
-            ("8B prefill 256 at 7936", 1, 256, 32, 8, 128, 8192, bf16, [7936]),
-            ("8B prefill 129 (ragged)", 1, 129, 32, 8, 128, 8192, bf16, [3968]),
-            ("8B prefill S=9", 2, 9, 32, 8, 128, 8192, bf16, [100, 5000]),
-            ("tiny-pair prefill bf16", 1, 64, 4, 4, 64, 256, bf16, [64]),
-            ("8B prefill 256 at 3840 f32", 1, 256, 32, 8, 128, 8192, f32, [3840]),
-            ("8B prefill 256 at 0 f32", 1, 256, 32, 8, 128, 8192, f32, [0]),
-            ("8B prefill 129 (ragged) f32", 1, 129, 32, 8, 128, 8192, f32, [3968]),
-            ("8B prefill S=9 f32", 2, 9, 32, 8, 128, 8192, f32, [100, 5000]),
-            ("tiny-pair prefill f32", 1, 64, 4, 4, 64, 256, f32, [64])]}
-    for name, rows in cases.items():
-        fn = attn.flash_decode if name == "flash_decode" else attn.flash_prefill
-        plain_fn = attn.flash_decode_plain if name == "flash_decode" else attn.flash_prefill_plain
-        out_cases = []
-        for label, b, s, h, kvh, d, t, dt, pos0 in rows:
-            scale = 1.0 / d ** 0.5
-            q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
-            kv_bytes = 2 * b * t * kvh * d * (2 if dt == bf16 else 4)
-            kvs = [tuple(torch.randn((b, t, kvh, d), generator=gen, device=dev).to(dt)
-                         for _ in range(2)) for _ in range(copies_for(kv_bytes))]
-            pos = (torch.tensor(pos0, dtype=torch.int32, device=dev)[:, None]
-                   + torch.arange(s, dtype=torch.int32, device=dev))
-            k, v = kvs[0]
-            n_split = 1
-            if name == "flash_prefill":
-                # cells past each row's last query position hold NaN for the
-                # kernel (it must not read them); the plain version, which
-                # reads all of T, gets zeros there
-                n_split = attn.prefill_n_split(b, s, h, kvh, t, attn.prefill_tile(dt))
-                kn, vn = k.clone(), v.clone()
-                for i, p0 in enumerate(pos0):
-                    kn[i, p0 + s:] = float("nan")
-                    vn[i, p0 + s:] = float("nan")
-                    k[i, p0 + s:] = 0
-                    v[i, p0 + s:] = 0
-                got = fn(q, kn, vn, pos, scale)
-                del kn, vn
-            else:
-                got = fn(q, k, v, pos, scale)
-            want = plain_fn(q, k, v, pos, scale)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ref = want.float().abs().max().item()
-            tol = ATTN_F32_TOL * max(1.0, ref) if dt == f32 else ATTN_BF16_TOL * ref
-            ms = time_ms(fn, [(q, k_, v_, pos, scale) for k_, v_ in kvs])
-            plain = time_ms(plain_fn, [(q, k_, v_, pos, scale) for k_, v_ in kvs[:2]],
-                            reps=5, per_rep=2)
-            lib = time_ms(lambda f: f(), [(sdpa_call(q, k_, v_, pos0, scale),)
-                                          for k_, v_ in kvs[:4]], reps=10, per_rep=4)
-            case = {"shape": label, "B": b, "S": s, "H": h, "KVH": kvh, "D": d, "T": t,
-                    "dtype": str(dt), "pos0": pos0, "max_abs_err": err, "max_abs_ref": ref,
-                    "tolerance": tol, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                    "n_split": n_split,
-                    **attn_bound(q.shape, kvh, t, pos0, q.element_size(), n_split)}
-            out_cases.append(case)
-            log(f"{name} {label:36s} err {err:.2e}/{ref:.2e} ms {ms:.4f} plain {plain:.4f} "
-                f"sdpa {lib:.4f} bound {case['bound_ms']:.4f} ({case['bound_by']}; "
-                f"f32 cores {case['f32_core_bound_ms']:.4f})")
-            if not err <= tol:
-                raise AssertionError(f"{name} {label}: max |err| {err} > {tol}")
-            del kvs, k, v
-            torch.cuda.empty_cache()
-        r = report[name]
-        r["cases"] = out_cases
-        r["max_abs_err"] = max(c["max_abs_err"] for c in out_cases)
-        r["tolerance"] = (f"f32: max|err| <= {ATTN_F32_TOL} * max(1, max|plain|); bf16: "
-                          f"max|err| <= {ATTN_BF16_TOL} * max|plain|")
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "f32_core_bound_ms", "bytes", "flops"):
-            r[key] = out_cases[0][key]
-        r["headline"] = out_cases[0]["shape"]
+    # case is the long phase's main path
+    rows = [
+        ("8B prefill 256 at 3840 (main path)", 1, 256, 32, 8, 128, 8192, bf16, [3840]),
+        ("8B prefill 256 at 0", 1, 256, 32, 8, 128, 8192, bf16, [0]),
+        ("8B prefill 256 at 7936", 1, 256, 32, 8, 128, 8192, bf16, [7936]),
+        ("8B prefill 129 (ragged)", 1, 129, 32, 8, 128, 8192, bf16, [3968]),
+        ("8B prefill S=9", 2, 9, 32, 8, 128, 8192, bf16, [100, 5000]),
+        ("tiny-pair prefill bf16", 1, 64, 4, 4, 64, 256, bf16, [64]),
+        ("8B prefill 256 at 3840 f32", 1, 256, 32, 8, 128, 8192, f32, [3840]),
+        ("8B prefill 256 at 0 f32", 1, 256, 32, 8, 128, 8192, f32, [0]),
+        ("8B prefill 129 (ragged) f32", 1, 129, 32, 8, 128, 8192, f32, [3968]),
+        ("8B prefill S=9 f32", 2, 9, 32, 8, 128, 8192, f32, [100, 5000]),
+        ("tiny-pair prefill f32", 1, 64, 4, 4, 64, 256, f32, [64])]
+    name, fn, plain_fn = "flash_prefill", attn.flash_prefill, attn.flash_prefill_plain
+    out_cases = []
+    for label, b, s, h, kvh, d, t, dt, pos0 in rows:
+        scale = 1.0 / d ** 0.5
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+        kv_bytes = 2 * b * t * kvh * d * (2 if dt == bf16 else 4)
+        kvs = [tuple(torch.randn((b, t, kvh, d), generator=gen, device=dev).to(dt)
+                     for _ in range(2)) for _ in range(copies_for(kv_bytes))]
+        pos = (torch.tensor(pos0, dtype=torch.int32, device=dev)[:, None]
+               + torch.arange(s, dtype=torch.int32, device=dev))
+        k, v = kvs[0]
+        # cells past each row's last query position hold NaN for the
+        # kernel (it must not read them); the plain version, which
+        # reads all of T, gets zeros there
+        n_split = attn.prefill_n_split(b, s, h, kvh, t, attn.prefill_tile(dt))
+        kn, vn = k.clone(), v.clone()
+        for i, p0 in enumerate(pos0):
+            kn[i, p0 + s:] = float("nan")
+            vn[i, p0 + s:] = float("nan")
+            k[i, p0 + s:] = 0
+            v[i, p0 + s:] = 0
+        got = fn(q, kn, vn, pos, scale)
+        del kn, vn
+        want = plain_fn(q, k, v, pos, scale)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        tol = ATTN_F32_TOL * max(1.0, ref) if dt == f32 else ATTN_BF16_TOL * ref
+        ms = time_ms(fn, [(q, k_, v_, pos, scale) for k_, v_ in kvs])
+        plain = time_ms(plain_fn, [(q, k_, v_, pos, scale) for k_, v_ in kvs[:2]],
+                        reps=5, per_rep=2)
+        lib = time_ms(lambda f: f(), [(sdpa_call(q, k_, v_, pos0, scale),)
+                                      for k_, v_ in kvs[:4]], reps=10, per_rep=4)
+        case = {"shape": label, "B": b, "S": s, "H": h, "KVH": kvh, "D": d, "T": t,
+                "dtype": str(dt), "pos0": pos0, "max_abs_err": err, "max_abs_ref": ref,
+                "tolerance": tol, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "n_split": n_split,
+                **attn_bound(q.shape, kvh, t, pos0, q.element_size(), n_split)}
+        out_cases.append(case)
+        log(f"{name} {label:36s} err {err:.2e}/{ref:.2e} ms {ms:.4f} plain {plain:.4f} "
+            f"sdpa {lib:.4f} bound {case['bound_ms']:.4f} ({case['bound_by']}; "
+            f"f32 cores {case['f32_core_bound_ms']:.4f})")
+        if not err <= tol:
+            raise AssertionError(f"{name} {label}: max |err| {err} > {tol}")
+        del kvs, k, v
+        torch.cuda.empty_cache()
+    attn_report(report[name], out_cases)
 
 
 # ---------------------------------------------------------------------------
@@ -545,9 +765,10 @@ def _server(extra: list[str], report: dict, key: str, slots: bool = False) -> No
         log(f"chat: {msg!r}")
         launches = _get(port, "/props")["kernel_launches"]
         log("server kernel launches", json.dumps(launches))
-        # the server's default path runs the GEMV and the KV write; flash
-        # attention is opt-in (ForwardOptions.attn_impl), as in the JAX package
-        if not (launches["qgemv"] > 0 and launches["kv_write"] > 0):
+        # the server's default path runs the GEMV and the fused KV store;
+        # flash attention is opt-in (ForwardOptions.attn_impl), as in the JAX
+        # package
+        if not (launches["qgemv"] > 0 and launches["kv_store"] > 0):
             raise AssertionError(f"server ran without a kernel: {launches}")
         report[key] = {"flags": extra, "requests": len(threads), "wall_s": wall,
                        "launches": launches}
@@ -559,6 +780,12 @@ def _server(extra: list[str], report: dict, key: str, slots: bool = False) -> No
             if not 0 < saved["n_saved"] == restored["n_restored"]:
                 raise AssertionError(f"slot save/restore: {saved} {restored}")
             report[key]["slot_tokens"] = saved["n_saved"]
+            # the restore writes the saved cells through the KV write kernel
+            launches = _get(port, "/props")["kernel_launches"]
+            log("server kernel launches after the restore", json.dumps(launches))
+            if not launches["kv_write"] > 0:
+                raise AssertionError(f"slot restore ran without kv_write: {launches}")
+            report[key]["launches"] = launches
     finally:
         proc.terminate()
         try:
@@ -582,6 +809,7 @@ def phase_server(report: dict) -> None:
 PARITY = [("default", "plain", {}, 1),
           ("flash attention", "kernel", {}, 1),
           ("flash attention, q8_0 cache", "kernel", {"kv_dtype": "q8_0"}, 1),
+          ("flash attention, q4_0 cache", "kernel", {"kv_dtype": "q4_0"}, 1),
           # ~150-token prompts cross the ga boundaries at 64 and 96
           ("flash attention, Self-Extend 2/64", "kernel",
            {"grp_attn_n": 2, "grp_attn_w": 64}, 8)]
@@ -642,7 +870,8 @@ def phase_tiny_parity(report: dict) -> None:
 
 
 KERNEL_NAMES = {"qgemv": ("qgemv_mma", "qgemv_fma"), "kv_write": ("kv_write_kernel",),
-                "flash_decode": ("decode_split", "decode_combine"),
+                "kv_store": ("kv_store_dense", "kv_store_quant"),
+                "flash_decode": ("decode_mma", "decode_f32"),
                 "flash_prefill": ("prefill_mma", "prefill_f32", "prefill_combine")}
 
 
@@ -697,14 +926,18 @@ def profile_decode(eng, prompts) -> dict:
     time by kernel over the next chunk from torch.profiler (CUPTI, CUDA
     activity only). The idle share sets the second chunk's device time
     against the first chunk's wall time, so the profiler's own host
-    overhead does not count as idle."""
+    overhead does not count as idle. Also counts the dense copies made of
+    a quantized cache (KVQ8.to / KVQ4.to) over the two chunks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from prima_tpu_torch.ops.kvquant import KVQ8
 
     for p in prompts[:4]:
         eng.submit(p, n_predict=24)
     eng.step()  # prefill all four, one host-sampled step
     torch.cuda.synchronize()
+    dense_copies = KVQ8.materialized
     t0 = time.perf_counter()
     events = eng.step_fused(max_chunk=8)
     torch.cuda.synchronize()
@@ -720,10 +953,12 @@ def profile_decode(eng, prompts) -> dict:
     if max(Counter(e.slot_id for e in events).values(), default=0) != steps:
         raise AssertionError("the profiled chunk ran another number of steps")
     by, top = device_ms(prof)
+    dense_copies = KVQ8.materialized - dense_copies
     while any(s.state.name != "IDLE" for s in eng.slots):
         eng.step_fused(max_chunk=8)
     busy = sum(by.values())
     return {"steps": steps, "wall_ms": wall * 1e3, "profiled_wall_ms": prof_wall * 1e3,
+            "quantized_cache_materializations": dense_copies,
             "device_busy_ms": busy, "device_idle_share": 1 - busy / (wall * 1e3),
             "device_ms": by, "top_kernels_ms": top}
 
@@ -777,7 +1012,7 @@ def phase_full(dev, report: dict, cfg, params) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     qm.launches.count = 0
-    kvw.launches.count = 0
+    kvw.store_launches.count = 0
     queue, live, done = list(prompts), [], []
     t0 = time.time()
     while queue or live:  # the loop EngineWorker._loop runs
@@ -789,7 +1024,7 @@ def phase_full(dev, report: dict, cfg, params) -> dict:
             live.remove(s)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"qgemv": qm.launches.count, "kv_write": kvw.launches.count}
+    launches = {"qgemv": qm.launches.count, "kv_store": kvw.store_launches.count}
     if len(done) != 8 or any(len(g) != 64 for g in done):
         raise AssertionError(f"8B engine finished {len(done)} requests, lengths "
                              f"{[len(g) for g in done]}")
@@ -821,33 +1056,24 @@ def phase_full(dev, report: dict, cfg, params) -> dict:
     return launches
 
 
-def phase_long(dev, report: dict, cfg, params) -> dict:
-    """Long-context serving at full width through flash attention."""
-    import numpy as np
+def serve_long(eng, prompts, n_predict: int, counters: dict, dev) -> dict:
+    """4 long prompts through submit + step_fused (the loop
+    EngineWorker._loop runs), the kernels' counts set to 0 just before and
+    read just after. Every forward call launches one KV store and one flash
+    kernel a layer."""
     import torch
 
-    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
-    from prima_tpu_torch.ops import attention as attn
-    from prima_tpu_torch.ops import kv_write as kvw
-    from prima_tpu_torch.quant import qmatmul as qm
-    from prima_tpu_torch.runtime.engine import Engine, SlotState
+    from prima_tpu_torch.runtime.engine import SlotState
 
-    counters = {"qgemv": qm.launches, "kv_write": kvw.launches,
-                "flash_decode": attn.decode_launches, "flash_prefill": attn.prefill_launches}
-    eng = Engine(cfg, params, n_slots=4, max_seq=8192, device=dev,
-                 opts=ForwardOptions(attn_impl="kernel"))
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.n_vocab, int(n)).tolist()
-               for n in rng.integers(3900, 4100, 4)]
     eng.run_to_completion(prompts[0][:16], n_predict=2)  # warm-up, not counted
     eng.perf = {k: 0 * v for k, v in eng.perf.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters.values():
         c.count = 0
-    live, done = [eng.submit(p, n_predict=32) for p in prompts], []
+    live, done = [eng.submit(p, n_predict=n_predict) for p in prompts], []
     t0 = time.time()
-    while live:  # the loop EngineWorker._loop runs
+    while live:
         eng.step_fused(max_chunk=8)
         for s in [s for s in live if s.state == SlotState.IDLE]:
             done.append(list(s.generated))
@@ -855,18 +1081,46 @@ def phase_long(dev, report: dict, cfg, params) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {k: c.count for k, c in counters.items()}
-    if len(done) != 4 or any(len(g) != 32 for g in done):
+    if len(done) != 4 or any(len(g) != n_predict for g in done):
         raise AssertionError(f"long engine finished {len(done)} requests, lengths "
                              f"{[len(g) for g in done]}")
     if not all(launches.values()):
         raise AssertionError(f"long-context path ran without a kernel: {launches}")
+    layers = eng.cfg.n_layers
+    if launches["kv_store"] % layers or \
+            launches["kv_store"] != launches["flash_decode"] + launches["flash_prefill"]:
+        raise AssertionError(f"not one KV store a layer and forward call: {launches}")
     p = eng.perf
-    long = {"layers": cfg.n_layers, "requests": 4, "max_seq": 8192,
-            "prompt_tokens": [len(x) for x in prompts], "gen_tokens": 32,
+    return {"layers": layers, "requests": 4, "max_seq": eng.max_seq,
+            "prompt_tokens": [len(x) for x in prompts], "gen_tokens": n_predict,
             "prefill_tok_s": p["n_prompt"] / p["t_prompt_s"],
             "decode_tok_s": p["n_decode"] / p["t_decode_s"], "wall_s": wall,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-            "launches": launches}
+            "launches": launches, "forward_calls": launches["kv_store"] // layers}
+
+
+def phase_long(dev, report: dict, cfg, params) -> dict:
+    """Long-context serving at full width through flash attention: over a
+    bf16 cache, then over a q8_0 cache."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+    from prima_tpu_torch.ops import attention as attn
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.ops.kvquant import KVQ8
+    from prima_tpu_torch.quant import qmatmul as qm
+    from prima_tpu_torch.runtime.engine import Engine
+
+    counters = {"qgemv": qm.launches, "kv_store": kvw.store_launches,
+                "flash_decode": attn.decode_launches, "flash_prefill": attn.prefill_launches}
+    eng = Engine(cfg, params, n_slots=4, max_seq=8192, device=dev,
+                 opts=ForwardOptions(attn_impl="kernel"))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.n_vocab, int(n)).tolist()
+               for n in rng.integers(3900, 4100, 4)]
+    long = serve_long(eng, prompts, 32, counters, dev)
+    launches = long["launches"]
     log("8B long-context engine", json.dumps(long))
     # the same prompts again reuse their cached prefixes: a decode chunk
     # near position 4000 without a second prefill
@@ -883,26 +1137,55 @@ def phase_long(dev, report: dict, cfg, params) -> dict:
     long["profile_prefill"] = profile_prefill(eng, cfg, rng)
     log("8B long prefill chunk profile", json.dumps(long["profile_prefill"]))
     del eng
+    gc.collect()  # the engine sits in a reference cycle with its generator
     torch.cuda.empty_cache()
 
-    # one decode step near position 4000 over f32 caches of seeded values,
-    # every kernel against every plain version
+    # the same weights and prompts over a q8_0 cache: the store quantizes in
+    # its kernel and the decode kernel reads the codes, so no decode step may
+    # make a dense copy of a cache
+    eng = Engine(cfg, params, n_slots=4, max_seq=8192, device=dev, kv_dtype="q8_0",
+                 opts=ForwardOptions(attn_impl="kernel"))
+    q8 = serve_long(eng, prompts, 16, counters, dev)
+    log("8B long-context engine, q8_0 cache", json.dumps(q8))
+    q8["profile"] = profile_decode(eng, prompts)
+    log("8B long decode chunk profile, q8_0 cache", json.dumps(q8["profile"]))
+    if q8["profile"]["quantized_cache_materializations"]:
+        raise AssertionError("a decode step over the q8_0 cache made a dense copy of it")
+    if not (q8["profile"]["device_ms"]["flash_decode"] > 0
+            and q8["profile"]["device_ms"]["kv_store"] > 0):
+        raise AssertionError("the q8_0 decode chunk ran without flash_decode or kv_store")
+    long["q8_0"] = q8
+    del eng
+    gc.collect()  # the engine sits in a reference cycle with its generator
+    torch.cuda.empty_cache()
+
+    # one decode step near position 4000 over caches of seeded values, f32
+    # and then q8_0, every kernel against every plain version
     pos0 = [4000, 4031, 3990, 4060]
-    kv = init_kv_caches(cfg, 4, 4096, torch.float32, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    for k, v in kv:
-        k.normal_(generator=gen)
-        v.normal_(generator=gen)
     toks = torch.as_tensor(rng.integers(0, cfg.n_vocab, (4, 1)), device=dev)
     pos = torch.tensor(pos0, dtype=torch.int32, device=dev)
-    logits = {}
-    for impl in ("kernel", "plain"):
-        with torch.no_grad():
-            logits[impl], _ = forward(
-                params, cfg, toks, pos[:, None], kv, pos,
-                ForwardOptions(matmul_impl=impl, attn_impl=impl, dtype=torch.float32))
-    check_logits(long, logits, "8B long-context step")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    for kind, into in ((torch.float32, long), ("q8_0", q8)):
+        kv = init_kv_caches(cfg, 4, 4096, kind, dev)
+        for pair in kv:
+            for c in pair:
+                x = torch.randn(c.shape, generator=gen, device=dev)
+                if kind == "q8_0":
+                    codes, scale = KVQ8.quantize(x)
+                    c.qs.copy_(codes)
+                    c.scale.copy_(scale)
+                else:
+                    c.copy_(x)
+        logits = {}
+        for impl in ("kernel", "plain"):
+            with torch.no_grad():
+                logits[impl], _ = forward(
+                    params, cfg, toks, pos[:, None], kv, pos,
+                    ForwardOptions(matmul_impl=impl, attn_impl=impl, dtype=torch.float32))
+        check_logits(into, logits, f"8B long-context step, {kind} cache")
+        del kv, logits
+        torch.cuda.empty_cache()
     report["long"] = long
     return launches
 
@@ -939,6 +1222,10 @@ def main() -> int:
         "kv_write": {"name": "kv_write", "route": "cuda",
                      "source": "prima_tpu_torch/" + kvw.SOURCE,
                      "replaces": "prima_tpu/ops/kv_pallas.py:33 _kv_write_kernel"},
+        "kv_store": {"name": "kv_store", "route": "cuda",
+                     "source": "prima_tpu_torch/" + kvw.SOURCE,
+                     "replaces": "prima_tpu/ops/kv_pallas.py:33 _kv_write_kernel (twice a "
+                                 "layer, with prima_tpu/ops/kvquant.py:82 quantize_kv)"},
         "flash_decode": {"name": "flash_decode", "route": "cuda",
                          "source": "prima_tpu_torch/" + attn.DECODE_SOURCE,
                          "replaces": "prima_tpu/ops/attention_pallas.py:148 _decode_kernel"},
@@ -958,6 +1245,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     if "kernels" in phases:
         t0 = time.time()
         phase_kernels(dev, report)
@@ -967,9 +1255,11 @@ def main() -> int:
         phase_server(report)
         phase_tiny_parity(report)
         log(f"server: {time.time() - t0:.1f} s")
-    # launches are counted only by the main path's run: the long phase,
-    # which runs all four model kernels; the probe's by its own entry point
-    launches = dict.fromkeys(("qgemv", "kv_write", "flash_decode", "flash_prefill"))
+    # launches are counted only by the main path's run: the long phase (its
+    # bf16 run), which runs the GEMV, the KV store and both flash kernels;
+    # the KV write's by the server that restored a slot; the probe's by its
+    # own entry point
+    launches = dict.fromkeys(("qgemv", "kv_store", "flash_decode", "flash_prefill"))
     if phases & {"full", "long"}:
         cfg, params = weights_8b(dev)
     if "full" in phases:
@@ -978,17 +1268,18 @@ def main() -> int:
         log(f"full: {time.time() - t0:.1f} s")
     if "long" in phases:
         t0 = time.time()
-        launches = phase_long(dev, report, cfg, params)
+        launches = dict(phase_long(dev, report, cfg, params))
         log(f"long: {time.time() - t0:.1f} s")
+    launches["kv_write"] = report.get("server_long_context", {}).get(
+        "launches", {}).get("kv_write")
     launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name in launches:
+    for name in ("qgemv", "kv_write", "kv_store", "flash_decode", "flash_prefill", "hbm_probe"):
         r = dict(report[name], launches=launches[name])
         kernels.append({k: r.get(k) for k in keys}
                        | {k: v for k, v in r.items() if k not in keys})
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "report": report, "kernels": kernels}, f, indent=1)
     summary = [{k: r[k] for k in keys} for r in kernels]

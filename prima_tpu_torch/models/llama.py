@@ -19,7 +19,7 @@ import torch
 from ..gguf.constants import GGMLType, TYPE_TRAITS
 from ..gguf.reader import GGUFModel, TensorInfo
 from ..ops.attention import flash_attention
-from ..ops.kvquant import KVQ4, KVQ8, update_kv
+from ..ops.kvquant import KVQ4, KVQ8, update_kv_pair
 from ..ops.layers import (apply_rope, causal_mask, gated_act, gqa_attention,
                           rms_norm, rope_freqs)
 from ..quant.dequant_np import dequantize_tensor
@@ -328,13 +328,13 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     k = apply_rope(k.reshape(b, s, kvh, hd), positions, inv_freq, cfg.rope_type, mscale)
     v = v.reshape(b, s, kvh, hd)
     k_cache, v_cache = kv
-    update_kv(k_cache, k, cache_pos)
-    update_kv(v_cache, v, cache_pos)
+    update_kv_pair(k_cache, v_cache, k, v, cache_pos)
     scale = cfg.attn_scale or 1.0 / np.sqrt(hd)
     if _flash_route(cfg, opts):
+        # the caches as they are stored: the decode kernel reads a quantized
+        # cache's codes, with no dense copy
         mp = positions if mask_pos is None else mask_pos
-        out = flash_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                              mp.to(torch.int32), scale)
+        out = flash_attention(q, k_cache, v_cache, mp.to(torch.int32), scale)
     else:
         out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, scale)
     return linear(out.reshape(b, s, h * hd), layer["wo"], opts.matmul_impl)

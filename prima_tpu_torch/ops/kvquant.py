@@ -5,20 +5,24 @@ KVQ8 holds int8 codes, KVQ4 packed int4 pairs, each with one f32 scale per
 (batch, cell, head) over the head_dim vector: 1 (or 0.5) byte an element
 plus 4 / D of scale, against 2 for bf16. Both stand where a dense
 (B, T, H, D) cache tensor goes; `to(dtype)` materializes dense values (the
-JAX `astype`). Codes are written through the byte-generic `kv_write`
-kernel, so `update_kv` on a quantized cache is one quantize plus two
-writes, in place.
+JAX `astype`). The decoder writes a layer's K and V through
+`update_kv_pair`, one fused `kv_store` launch that quantizes in the kernel;
+`update_kv` writes one cache through the byte-generic `kv_write` kernel
+(one quantize in plain PyTorch plus two writes for a quantized cache), in
+place.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kv_write import kv_write
+from .kv_write import kv_store, kv_write, kv_write_plain
 
 
 class KVQ8:
     """int8 codes qs (B, T, H, D) and f32 scales (B, T, H, 1)."""
+
+    materialized = 0  # to() calls on any quantized cache: each is a dense copy
 
     def __init__(self, qs: torch.Tensor, scale: torch.Tensor):
         self.qs = qs
@@ -38,6 +42,7 @@ class KVQ8:
                                device=device))
 
     def to(self, dtype) -> torch.Tensor:
+        KVQ8.materialized += 1
         return (self.qs.float() * self.scale).to(dtype)
 
     @staticmethod
@@ -62,6 +67,7 @@ class KVQ4(KVQ8):
                                device=device))
 
     def to(self, dtype) -> torch.Tensor:
+        KVQ8.materialized += 1
         lo = (self.qs & 0x0F).to(torch.int32) - 8
         hi = (self.qs >> 4).to(torch.int32) - 8
         return (torch.cat([lo, hi], dim=-1).float() * self.scale).to(dtype)
@@ -101,15 +107,32 @@ def is_quantized(cache) -> bool:
     return isinstance(cache, KVQ8)  # KVQ4 is a KVQ8
 
 
+def _update_kv(cache, new: torch.Tensor, cache_pos: torch.Tensor, write):
+    if is_quantized(cache):
+        q, s = cache.quantize(new)
+        write(cache.qs, q.contiguous(), cache_pos)
+        write(cache.scale, s.contiguous(), cache_pos)
+        return cache
+    return write(cache, new.to(cache.dtype).contiguous(), cache_pos)
+
+
 def update_kv(cache, new: torch.Tensor, cache_pos: torch.Tensor):
     """Write `new` (B, S, H, D) at per-row positions `cache_pos` (B,) int32
     into a dense, KVQ8 or KVQ4 cache, in place; returns the cache."""
-    if is_quantized(cache):
-        q, s = cache.quantize(new)
-        kv_write(cache.qs, q.contiguous(), cache_pos)
-        kv_write(cache.scale, s.contiguous(), cache_pos)
-        return cache
-    return kv_write(cache, new.to(cache.dtype).contiguous(), cache_pos)
+    return _update_kv(cache, new, cache_pos, kv_write)
+
+
+def update_kv_plain(cache, new: torch.Tensor, cache_pos: torch.Tensor):
+    """`update_kv` in plain PyTorch on any device (no kernel)."""
+    return _update_kv(cache, new, cache_pos, kv_write_plain)
+
+
+def update_kv_pair(k_cache, v_cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                   cache_pos: torch.Tensor):
+    """One layer's K and V rows into both caches, in place, through one
+    `kv_store` launch (two `update_kv` calls in the JAX package); returns
+    the caches."""
+    return kv_store(k_cache, v_cache, k_new, v_new, cache_pos)
 
 
 def kv_seq_len(cache) -> int:

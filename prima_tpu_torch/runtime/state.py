@@ -15,7 +15,8 @@ import json
 import numpy as np
 import torch
 
-from .kv import materialize_row, set_row
+from ..ops.kvquant import update_kv
+from .kv import materialize_row
 
 STATE_MAGIC = "prima-tpu-state"
 STATE_VERSION = 1
@@ -67,11 +68,15 @@ def slot_restore(engine, slot_id: int, path: str) -> int:
         if used > engine.max_seq:
             raise ValueError(f"{path}: state length {used} > max_seq {engine.max_seq}")
         tokens = [int(t) for t in z["tokens"]]
+        # the saved cells go into the slot's row at cell 0 through the KV
+        # write kernel (requantized for a quantized cache); cells past them
+        # stay as they are, hidden by the write index
+        start = torch.zeros(1, dtype=torch.int32, device=engine.device)
         for li, (k, v) in enumerate(engine.kv.caches):
             for cache, name in ((k, f"k{li}"), (v, f"v{li}")):
-                row = materialize_row(cache, slot_id).float()
-                row[:used] = torch.from_numpy(np.asarray(z[name], np.float32)).to(row.device)
-                set_row(cache, slot_id, row)
+                if used:
+                    cells = torch.from_numpy(np.asarray(z[name], np.float32))
+                    update_kv(cache[slot_id:slot_id + 1], cells[None].to(engine.device), start)
     engine.kv.cache_pos[slot_id] = used
     slot = engine.slots[slot_id]
     slot.prompt = tokens

@@ -129,7 +129,9 @@ def test_qgemv_rejects_what_it_cannot_take(dev):
 
 KV_CASES = [(4, 1, 2048, 1024, [5, 700, 2047, 1300]), (1, 128, 2048, 1024, [256]),
             (4, 8, 64, 1024, [60, 0, 3000, 17]), (4, 1, 512, 256, [0, 1, 2, 511]),
-            (4, 1, 512, 128, [3, 9, 27, 81]), (2, 3, 16, 24, [1, 14])]
+            (4, 1, 512, 128, [3, 9, 27, 81]), (2, 3, 16, 24, [1, 14]),
+            # a restored slot of the tiny pair's q8_0 cache: code rows, scale rows
+            (1, 59, 512, 256, [0]), (1, 59, 512, 4, [0])]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -258,6 +260,161 @@ def test_quantized_update_kv_matches_cpu(dev, kind):
     torch.cuda.synchronize()
     assert torch.equal(caches[0].qs, caches[1].qs.cpu())
     assert torch.equal(caches[0].scale, caches[1].scale.cpu())
+
+
+# flash_decode: (B, S, H, KVH, D, T, pos0 per batch row)
+DECODE_CASES = [(4, 1, 32, 8, 128, 8192, [4000, 4031, 3990, 4060]),  # the long-context step
+                (4, 4, 32, 8, 128, 2000, [0, 77, 1996, 1024]),       # S = 4, T % 64 != 0
+                (2, 8, 32, 8, 128, 1024, [3, 1016]),                 # 32 folded rows
+                (4, 1, 4, 4, 64, 256, [0, 1, 100, 255]),             # the tiny pair, group 1
+                (2, 8, 16, 2, 64, 300, [3, 290]),                    # 64 rows: 2 row tiles
+                (3, 1, 8, 8, 64, 2048, [17, 2047, 600])]             # one chunk shorter than a tile
+KINDS = {"dense": None, "q8_0": kvq.KVQ8, "q4_0": kvq.KVQ4}
+
+
+def _decode_caches(cls, k, v, pos0, s, dtype):
+    """(caches for the kernel, caches for the plain version): the first hold
+    NaN in every cell past a row's last query position (NaN scales for a
+    quantized cache), the second zeros there."""
+    out = []
+    for fill in (float("nan"), 0.0):
+        pair = []
+        for x in (k, v):
+            if cls is None:
+                c = x.clone()
+                for i, p0 in enumerate(pos0):
+                    c[i, p0 + s:] = fill
+            else:
+                c = cls(*cls.quantize(x))
+                for i, p0 in enumerate(pos0):
+                    c.scale[i, p0 + s:] = fill
+            pair.append(c)
+        out.append(pair)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("b,s,h,kvh,d,t,pos0", DECODE_CASES)
+def test_flash_decode_matches_plain_and_repeats(dev, b, s, h, kvh, d, t, pos0, kind, dtype):
+    """Dense, q8_0 and q4_0 caches against flash_decode_plain on
+    cache.to(dtype); cells past each prefix (NaN) are never read; four runs
+    give the same bits (the chunks are merged in index order)."""
+    q, k, v, pos = _attn_inputs(dev, b, s, h, kvh, d, t, pos0, dtype, seed=s + d)
+    (kn, vn), (kz, vz) = _decode_caches(KINDS[kind], k, v, pos0, s, dtype)
+    want = attn.flash_decode_plain(q, kz, vz, pos, 0.125)
+    before = attn.decode_launches.count
+    runs = [attn.flash_decode(q, kn, vn, pos, 0.125) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert attn.decode_launches.count == before + 4
+    assert runs[0].dtype == dtype and runs[0].shape == q.shape
+    assert (runs[0].float() - want.float()).abs().max().item() <= _attn_tol(want, dtype)
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_flash_decode_on_a_slot_row_view(dev, kind):
+    """The engine hands in one slot's row of the full cache: codes and scales
+    arrive with their own batch strides."""
+    q, k, v, pos = _attn_inputs(dev, 3, 1, 8, 2, 128, 512, [40, 300, 511], torch.bfloat16)
+    cls = KINDS[kind]
+    kc, vc = (k, v) if cls is None else (cls(*cls.quantize(k)), cls(*cls.quantize(v)))
+    got = attn.flash_decode(q[1:2].contiguous(), kc[1:2], vc[1:2], pos[1:2], 0.125)
+    want = attn.flash_decode_plain(q[1:2], kc[1:2], vc[1:2], pos[1:2], 0.125)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _attn_tol(want, torch.bfloat16)
+
+
+def test_flash_decode_rejects_mixed_caches(dev):
+    q, k, v, pos = _attn_inputs(dev, 2, 1, 8, 2, 64, 64, [1, 2], torch.float32)
+    k8 = kvq.KVQ8(*kvq.KVQ8.quantize(k))
+    with pytest.raises(ValueError):
+        attn.flash_decode(q, k8, v, pos, 0.125)
+    with pytest.raises(ValueError):
+        attn.flash_decode(q, k8, kvq.KVQ4(*kvq.KVQ4.quantize(v)), pos, 0.125)
+    with pytest.raises(ValueError):
+        attn.flash_decode(q.repeat(1, 9, 1, 1), k, v, pos.repeat(1, 9), 0.125)
+
+
+def _store_caches(dev, kind, shape, dtype):
+    if kind == "dense":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2))
+    cls = KINDS[kind]
+    return cls.zeros(shape, dev), cls.zeros(shape, dev)
+
+
+def _cache_tensors(c):
+    return (c.qs, c.scale) if kvq.is_quantized(c) else (c,)
+
+
+# kv_store: (B, S, T, H, D, positions), one of them past T - S
+STORE_CASES = [(4, 1, 2048, 8, 128, [5, 700, 2047, 3000]),   # the 8B decode step
+               (1, 256, 2048, 8, 128, [1900]),               # a prefill chunk, clamped
+               (4, 3, 64, 4, 64, [0, 9, 30, 62]),            # the tiny pair
+               (2, 5, 16, 2, 24, [1, 14]),                   # head_dim 24: 12 codes a half
+               (2, 5, 16, 3, 20, [1, 14])]                   # rows of 120 bytes: no 16-byte copies
+
+
+@pytest.mark.parametrize("new_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,dtype", [("dense", torch.float32), ("dense", torch.bfloat16),
+                                        ("q8_0", None), ("q4_0", None)])
+@pytest.mark.parametrize("b,s,t,h,d,pos", STORE_CASES)
+def test_kv_store_matches_plain_bit_for_bit(dev, b, s, t, h, d, pos, kind, dtype, new_dtype):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s)
+    k_new, v_new = ((torch.randn((b, s, h, d), generator=gen, device=dev)
+                     * 10.0 ** torch.randint(-3, 3, (b, s, h, 1), generator=gen, device=dev))
+                    .to(new_dtype) for _ in range(2))
+    k_new[0, 0, 0] = 0  # a zero vector: scale 0, codes 0
+    v_new[0, 0, 1] = torch.arange(d, device=dev) * 0.5 - 2.75  # ties: round half to even
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got = _store_caches(dev, kind, (b, t, h, d), dtype)
+    want = _store_caches(dev, kind, (b, t, h, d), dtype)
+    before = kvw.store_launches.count
+    if kind != "dense" and d % 8:
+        with pytest.raises(ValueError):  # the quantizing kernel takes head_dim % 8 == 0
+            kvw.kv_store(*got, k_new, v_new, pos_t)
+        return
+    out = kvw.kv_store(*got, k_new, v_new, pos_t)
+    kvw.kv_store_plain(*want, k_new, v_new, pos_t)
+    torch.cuda.synchronize()
+    assert kvw.store_launches.count == before + 1
+    assert out[0] is got[0] and out[1] is got[1]  # in place
+    for g, w in zip(got, want):
+        for x, y in zip(_cache_tensors(g), _cache_tensors(w)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["dense", "q8_0", "q4_0"])
+def test_kv_store_on_a_slot_row_view(dev, kind):
+    """The engine's prefill writes one slot's row of the full caches."""
+    shape = (3, 32, 4, 64)
+    got = _store_caches(dev, kind, shape, torch.bfloat16)
+    want = _store_caches(dev, kind, shape, torch.bfloat16)
+    new = torch.randn((2, 1, 5, 4, 64), device=dev).to(torch.bfloat16)
+    pos = torch.tensor([30], dtype=torch.int32, device=dev)
+    kvw.kv_store(got[0][1:2], got[1][1:2], new[0], new[1], pos)
+    kvw.kv_store_plain(want[0][1:2], want[1][1:2], new[0], new[1], pos)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        for x, y in zip(_cache_tensors(g), _cache_tensors(w)):
+            assert torch.equal(x, y)
+
+
+def test_kv_store_rejects_what_it_cannot_take(dev):
+    k, v = _store_caches(dev, "dense", (2, 16, 2, 64), torch.float32)
+    new = torch.ones((2, 1, 2, 64), device=dev)
+    pos = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kvw.kv_store(k, v, new, new, pos.long())
+    with pytest.raises(ValueError):
+        kvw.kv_store(k, kvq.KVQ8.zeros((2, 16, 2, 64), dev), new, new, pos)
+    with pytest.raises(ValueError):
+        kvw.kv_store(k, v, new, new.half(), pos)
+    with pytest.raises(ValueError):
+        kvw.kv_store(k, v, new[:, :, :1], new[:, :, :1], pos)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

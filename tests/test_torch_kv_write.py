@@ -47,3 +47,31 @@ def test_clamps_past_the_end():
     new = torch.ones(1, 4, 2)
     kvw.kv_write(cache, new, torch.tensor([T + 7], dtype=torch.int32))
     assert cache[0, : T - 4].abs().sum() == 0 and torch.all(cache[0, T - 4:] == 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,d,pos", CASES)
+def test_kv_store_matches_two_jax_update_kv(b, s, h, d, pos, dtype):
+    """The fused store of a layer's K and V rows (its plain version on the
+    CPU) against update_kv for K and for V in the JAX package."""
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    pairs = [_inputs(b, s, h, d, seed=b * 100 + s + i) for i in range(2)]
+    want = [np.asarray(jupdate_kv(jnp.asarray(c, jd), jnp.asarray(n, jd),
+                                  jnp.asarray(pos, jnp.int32)).astype(jnp.float32))
+            for c, n in pairs]
+    caches = [torch.from_numpy(c).to(td) for c, _ in pairs]
+    new = [torch.from_numpy(n).to(td) for _, n in pairs]
+    out = kvw.kv_store(*caches, *new, torch.tensor(pos, dtype=torch.int32))
+    assert out[0] is caches[0] and out[1] is caches[1]  # in place
+    for got, ref in zip(caches, want):
+        np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+def test_kv_store_counts_no_launch_on_the_cpu():
+    cache, new = _inputs(2, 1, 2, 16, seed=1)
+    k, v = torch.from_numpy(cache), torch.from_numpy(cache.copy())
+    before = kvw.store_launches.count, kvw.launches.count
+    kvw.kv_store(k, v, torch.from_numpy(new), torch.from_numpy(new),
+                 torch.tensor([3, 40], dtype=torch.int32))
+    assert (kvw.store_launches.count, kvw.launches.count) == before
+    assert torch.equal(k, v) and torch.equal(k[1, T - 1], torch.from_numpy(new)[1, 0])

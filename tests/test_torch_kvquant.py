@@ -68,6 +68,68 @@ def test_update_kv_codes_and_values_match_jax(kind):
     assert kvq.kv_seq_len(cache) == jkvq.kv_seq_len(jcache) == 16
 
 
+@pytest.mark.parametrize("new_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "q8_0", "q4_0"])
+def test_update_kv_pair_matches_two_jax_update_kv(kind, new_dtype):
+    """One update_kv_pair (the fused KV store) against update_kv for K and
+    for V in the JAX package: dense values, codes and scales bit for bit,
+    rows of another float type cast, the write start clamped to T - S."""
+    shape = (3, 16, 2, 32)
+    if kind in KINDS:
+        cls, jcls, _, _ = KINDS[kind]
+        caches = (cls.zeros(shape), cls.zeros(shape))
+        jcaches = (jcls.zeros(shape), jcls.zeros(shape))
+    else:
+        seeded = np.random.default_rng(4).standard_normal((2,) + shape).astype(np.float32)
+        caches = tuple(torch.from_numpy(x).to(getattr(torch, kind)) for x in seeded)
+        jcaches = tuple(jnp.asarray(x, getattr(jnp, kind)) for x in seeded)
+    rng = np.random.default_rng(5)
+    for s, pos in [(5, [0, 3, 14]), (1, [5, 8, 15]), (4, [9, 20, 0])]:
+        new = _values((2, 3, s, 2, 32), seed=s)
+        new *= rng.uniform(0.5, 2.0, new.shape).astype(np.float32)
+        tn = [torch.from_numpy(x).to(getattr(torch, new_dtype)) for x in new]
+        out = kvq.update_kv_pair(*caches, *tn, torch.tensor(pos, dtype=torch.int32))
+        assert out[0] is caches[0] and out[1] is caches[1]  # in place
+        jcaches = tuple(jkvq.update_kv(c, jnp.asarray(x, getattr(jnp, new_dtype)),
+                                       jnp.asarray(pos, jnp.int32))
+                        for c, x in zip(jcaches, new))
+    for c, jc in zip(caches, jcaches):
+        if kind in KINDS:
+            np.testing.assert_array_equal(c.qs.numpy(), np.asarray(jc.qs))
+            np.testing.assert_array_equal(c.scale.numpy(), np.asarray(jc.scale))
+        else:
+            np.testing.assert_array_equal(c.float().numpy(),
+                                          np.asarray(jc.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_update_kv_pair_on_a_slot_row_view(kind):
+    """The engine's prefill writes one slot's row of the full caches: codes
+    and scales land in that row only."""
+    cls, jcls, _, _ = KINDS[kind]
+    shape = (3, 16, 2, 32)
+    k, v = cls.zeros(shape), cls.zeros(shape)
+    new = _values((2, 1, 4, 2, 32), seed=9)
+    kvq.update_kv_pair(k[1:2], v[1:2], torch.from_numpy(new[0]), torch.from_numpy(new[1]),
+                       torch.tensor([7], dtype=torch.int32))
+    for c, x in ((k, new[0]), (v, new[1])):
+        jc = jkvq.update_kv(jcls.zeros((1,) + shape[1:]), jnp.asarray(x),
+                            jnp.asarray([7], jnp.int32))
+        np.testing.assert_array_equal(c.qs[1:2].numpy(), np.asarray(jc.qs))
+        np.testing.assert_array_equal(c.scale[1:2].numpy(), np.asarray(jc.scale))
+        zero = cls.zeros((1,) + shape[1:])
+        for row in (0, 2):
+            assert torch.equal(c.qs[row:row + 1], zero.qs) and not c.scale[row].any()
+
+
+def test_materialized_counts_dense_copies():
+    c = kvq.KVQ4.zeros((1, 4, 2, 16))
+    before = kvq.KVQ8.materialized
+    c.to(torch.float32)
+    kvq.KVQ8.zeros((1, 4, 2, 16)).to(torch.bfloat16)
+    assert kvq.KVQ8.materialized == before + 2
+
+
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_cache_ops_on_quantized_caches_match_jax(kind):
     """context_shift, rope_shift, seq_div, seq_cp: K is materialized to
