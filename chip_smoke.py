@@ -10,7 +10,9 @@ Phases, each of which fails the run on any error or mismatch:
                windows after warm-up, operands rotated past the 50 MB L2), beside
                its bound and the library call that computes the same
                function, where there is one: the GEMV at B = 1, 4, 8, 31 and
-               at the narrow split-K shapes (N = 1024, N = 256); the KV
+               at the narrow split-K shapes (N = 1024, N = 256); the
+               expert-indexed GEMV at Mixtral-8x7B's expert shapes (2 and 8
+               pairs, repeated and out-of-order ids, Q4_K and Q6_K); the KV
                write at the shapes of the server's slot restore (int8 codes
                and f32 scales into a one-slot view) and at 8B rows (exact
                bits); the fused KV store of a layer over dense, q8_0 and
@@ -28,7 +30,10 @@ Phases, each of which fails the run on any error or mismatch:
                1); then the Engine's greedy streams on the card (every
                kernel) against the CPU (plain path), in f32: the default
                path, flash attention, flash attention over a q8_0 and
-               over a q4_0 cache, and flash attention under Self-Extend.
+               over a q4_0 cache, and flash attention under Self-Extend;
+               and the same for a tiny gemma2 (softcap, sliding window,
+               post norms, GeGLU) and a tiny qwen2moe (the indexed GEMV,
+               a shared expert).
   4. full    — the Llama-3-8B shape with Q4_K weights generated on the card:
                Engine(n_slots=4, max_seq=2048) serves 8 requests through
                submit + step_fused(max_chunk=8); the kernels' launch counts
@@ -44,6 +49,13 @@ Phases, each of which fails the run on any error or mismatch:
                no quantized cache may be materialized; one decode step near
                position 4000 over f32 caches and over seeded q8_0 caches,
                every kernel against every plain version.
+  6. moe     — Mixtral-8x7B at full width and depth (8 experts, top-2),
+               Q4_K weights generated on the card after the 8B weights are
+               freed: Engine(n_slots=4, max_seq=4096, attn_impl="kernel")
+               serves 4 requests of 480-512 prompt tokens and 32 greedy
+               tokens; the launch counts of every kernel in that run (the
+               indexed GEMV's are the kernels line's); a decode chunk
+               profiled; one decode step's logits, every kernel vs plain.
 The decoder writes K and V through the fused KV store; the byte-generic KV
 write runs where a saved slot is restored, so its launches are the server's
 (phase 3). The device-memory probe is on no serving path: its launches are
@@ -80,6 +92,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 LLAMA3_8B = dict(n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8, head_dim=128,
                  n_ff=14336, n_vocab=128256, n_ctx_train=8192, rope_base=500000.0,
                  rope_dim=128)  # bench.py model_shape("8b")
+# Mixtral-8x7B-v0.1's config.json: 8 experts, top-2, RoPE base 1e6
+MIXTRAL = dict(n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+               n_ff=14336, n_vocab=32000, n_ctx_train=32768, rope_base=1e6, rope_dim=128,
+               rms_eps=1e-5, n_expert=8, n_expert_used=2)
 # max |kernel - plain| / max |plain|, f32: sums in another order; for nib4
 # weights on the tensor cores also x taken as two bf16 parts, a residual of
 # <= 2^-17 |x| per term (measured ~3e-6 of max |plain|)
@@ -306,8 +322,87 @@ def phase_kernels(dev, report: dict) -> None:
     log(f"qgemv 8B Q4_K step: {json.dumps(report['qgemv']['step_ms_by_batch'])} ms by B; "
         f"a launch at B = 4 costs {my - slope * mx:.4f} ms + bytes at "
         f"{1e-6 / slope:.0f} GB/s (least squares over the five shapes)")
+    phase_indexed_gemv(dev, report, gen)
     phase_attention(dev, report)
     phase_probe(dev, report)
+
+
+def indexed_cases():
+    """(format, label, N, K, ids) at Mixtral-8x7B's expert shapes, 8
+    experts: top-2 of one row (B = 1) and of four rows (B = 4, 8 pairs),
+    with repeated and out-of-order ids."""
+    from prima_tpu_torch.gguf.constants import GGMLType as T
+
+    b1, b4 = [5, 2], [3, 1, 1, 6, 7, 3, 0, 2]
+    return [(T.Q4_K, "gate/up", MIXTRAL["n_ff"], MIXTRAL["n_embd"], b1),
+            (T.Q4_K, "gate/up", MIXTRAL["n_ff"], MIXTRAL["n_embd"], b4),
+            (T.Q4_K, "down", MIXTRAL["n_embd"], MIXTRAL["n_ff"], b1),
+            (T.Q4_K, "down", MIXTRAL["n_embd"], MIXTRAL["n_ff"], b4),
+            (T.Q6_K, "down", MIXTRAL["n_embd"], MIXTRAL["n_ff"], b4)]
+
+
+def phase_indexed_gemv(dev, report: dict, gen) -> None:
+    """The expert-indexed GEMV against its plain version (qmatmul_plain of
+    each pair's expert slice) on stacked experts of Mixtral's shapes. Its
+    bound reads each distinct expert's bytes once (pairs on one expert
+    need its bytes once; the kernel reads them once a pair)."""
+    import torch
+
+    from prima_tpu_torch.models.llama import synth_qtensor_device
+    from prima_tpu_torch.quant import qmatmul as qm
+
+    n_exp = MIXTRAL["n_expert"]
+    out_cases = []
+    for t, label, n, k, ids in indexed_cases():
+        qts = [synth_qtensor_device(gen, n_exp * n, k, t, dev)]
+        slice_bytes = qts[0].nbytes // n_exp
+        qts += [synth_qtensor_device(gen, n_exp * n, k, t, dev)
+                for _ in range(copies_for(len(set(ids)) * slice_bytes) - 1)]
+        qt, p = qts[0], len(ids)
+        idt = torch.tensor(ids, dtype=torch.int32, device=dev)
+        x = torch.randn((p, k), generator=gen, device=dev)
+        y = qm.qgemv_indexed(x, qt, idt, n)
+        ref = qm.qgemv_indexed_plain(x, qt, idt, n)
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        ms = time_ms(qm.qgemv_indexed, [(x, q, idt, n) for q in qts])
+        plain = time_ms(qm.qgemv_indexed_plain, [(x, q, idt, n) for q in qts[:2]],
+                        reps=5, per_rep=2)
+        nbytes = len(set(ids)) * slice_bytes + p * k * 4 + p * n * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 2.0 * p * n * k / F32_FLOPS
+        ksplit, ksb = qm.gemv_split(n * p, qt.qs.shape[1], 1, qt.layout)
+        case = {"format": t.name, "shape": label, "N": n, "K": k, "P": p, "ids": ids,
+                "experts": n_exp, "scales": qm.scale_mode(qt), "ksplit": ksplit,
+                "slice_bytes": ksb, "max_abs_err": err, "max_abs_ref": scale, "ms": ms,
+                "plain_ms": plain, "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+                "pair_bytes": p * slice_bytes}
+        out_cases.append(case)
+        log(f"qgemv_indexed {t.name:5s} {label:8s} P={p} ids {ids} ksplit {ksplit} "
+            f"err {err:.2e}/{scale:.2e} ms {ms:.4f} plain {plain:.4f} "
+            f"bound {case['bound_ms']:.4f} ({len(set(ids))} experts, "
+            f"{nbytes / 1e6:.1f} MB)")
+        if not err <= GEMV_TOL * scale:
+            raise AssertionError(f"qgemv_indexed {t.name} {label} P={p}: max |err| {err} "
+                                 f"> {GEMV_TOL} * {scale}")
+        del qts
+        torch.cuda.empty_cache()
+    r = report["qgemv_indexed"]
+    r["cases"] = out_cases
+    r["max_abs_err"] = max(c["max_abs_err"] for c in out_cases)
+    r["tolerance"] = f"max|err| <= {GEMV_TOL} * max|plain| (f32)"
+    # one Mixtral decode step at B = 4 (8 pairs a launch): gate and up, then
+    # down, in each of 32 layers
+    step = {c["shape"]: c for c in out_cases if c["format"] == "Q4_K" and c["P"] == 8}
+    for key in ("ms", "plain_ms", "bound_ms"):
+        r[key] = MIXTRAL["n_layers"] * (2 * step["gate/up"][key] + step["down"][key])
+    r["bound_by"] = "bytes"
+    r["library_ms"] = None
+    r["headline"] = ("sum over the 96 indexed launches of one Mixtral-8x7B Q4_K decode "
+                     "step at B = 4 (8 pairs each, ids " + str(step["down"]["ids"]) + ")")
 
 
 def phase_kv_store(dev, report: dict, gen) -> None:
@@ -823,7 +918,7 @@ def greedy_streams(device: str, impl: str, attn_impl: str = "plain", repeat: int
 
     from prima_tpu_torch.models.llama import ForwardOptions
     from prima_tpu_torch.models.loader import load_model
-    from prima_tpu_torch.runtime.engine import Engine, SlotState
+    from prima_tpu_torch.runtime.engine import Engine
 
     m = load_model(TINY, device=device)
     engine_kw.setdefault("kv_dtype", torch.float32)
@@ -831,12 +926,20 @@ def greedy_streams(device: str, impl: str, attn_impl: str = "plain", repeat: int
                  opts=ForwardOptions(matmul_impl=impl, attn_impl=attn_impl,
                                      dtype=torch.float32),
                  eog_ids=m.eog_ids, **engine_kw)
-    prompts = [m.tokenizer.encode(p * repeat, add_special=True) for p in PROMPTS]
+    return engine_streams(eng, [m.tokenizer.encode(p * repeat, add_special=True)
+                                for p in PROMPTS])
+
+
+def engine_streams(eng, prompts: list, n_predict: int = 32) -> list[list[int]]:
+    """The tokens `eng` generates for each prompt through submit +
+    step_fused, more prompts than slots (slot reuse)."""
+    from prima_tpu_torch.runtime.engine import SlotState
+
     out, slots, queue = {}, {}, list(enumerate(prompts))
     while queue or slots:
         while queue and eng.find_idle_slot() is not None:
             i, p = queue.pop(0)
-            slots[i] = eng.submit(p, n_predict=32)
+            slots[i] = eng.submit(p, n_predict=n_predict)
         eng.step_fused(max_chunk=8)
         for i, s in list(slots.items()):
             if s.state == SlotState.IDLE:
@@ -845,10 +948,113 @@ def greedy_streams(device: str, impl: str, attn_impl: str = "plain", repeat: int
     return [out[i] for i in range(len(prompts))]
 
 
+def tiny_arch(name: str):
+    """(cfg, params) of a tiny gemma2 (GeGLU, embedding scale, attention
+    and final softcaps, a sliding window of 16 on even layers, post norms,
+    tied head) or qwen2moe (4 experts, raw top-2 weights, q/k/v biases, a
+    shared expert under a sigmoid gate), quantized weights and f32 norms
+    and routers made on the CPU from a seed."""
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import RopeType, tiny_config
+    from prima_tpu_torch.models.llama import synth_qtensor_device
+
+    e, h, kvh, hd, f, v = 256, 4, 2, 64, 512, 512
+    common = dict(n_embd=e, n_heads=h, n_kv_heads=kvh, head_dim=hd, rope_dim=hd, n_ff=f,
+                  n_vocab=v, n_layers=2)
+    if name == "gemma2":
+        cfg = tiny_config(arch="gemma2", act="gelu", embd_scale=e ** 0.5,
+                          attn_logit_softcap=5.0, final_logit_softcap=3.0, post_norms=True,
+                          swa_window=16, attn_scale=1.0 / hd ** 0.5, tie_embeddings=True,
+                          rope_type=RopeType.NEOX, **common)
+    else:
+        cfg = tiny_config(arch="qwen2moe", n_expert=4, n_expert_used=2, moe_norm_w=False,
+                          qkv_bias=True, rope_type=RopeType.NEOX, **common)
+    gen = torch.Generator()
+    gen.manual_seed(17)
+    # symmetric formats (zero-mean weights: Q4_K's mins would give every
+    # row of the tied head a bias that decides the argmax alone): Q4_0 on
+    # the tensor-core kernel, Q8_0 for the down projections on the other
+    q = lambda rows, k, t=GGMLType.Q4_0: synth_qtensor_device(gen, rows, k, t, "cpu")
+    q8 = lambda rows, k: q(rows, k, GGMLType.Q8_0)
+    norm = lambda n: 3 * (1 + 0.1 * torch.randn(n, generator=gen))
+    params = {"tok_embd": q(v, e), "output_norm": norm(e),
+              "output": None if cfg.tie_embeddings else q(v, e), "layers": []}
+    for _ in range(cfg.n_layers):
+        layer = {"attn_norm": norm(e), "wq": q(h * hd, e), "wk": q(kvh * hd, e),
+                 "wv": q(kvh * hd, e), "wo": q(e, h * hd), "ffn_norm": norm(e)}
+        if name == "gemma2":
+            layer.update(w_gate=q(f, e), w_up=q(f, e), w_down=q8(e, f),
+                         attn_post_norm=norm(e), ffn_post_norm=norm(e))
+        else:
+            layer.update(bq=0.02 * torch.randn(h * hd, generator=gen),
+                         bk=0.02 * torch.randn(kvh * hd, generator=gen),
+                         bv=0.02 * torch.randn(kvh * hd, generator=gen),
+                         ffn_gate_inp=torch.randn((4, e), generator=gen),
+                         ffn_gate_exps=q(4 * f, e), ffn_up_exps=q(4 * f, e),
+                         ffn_down_exps=q8(4 * e, f),
+                         ffn_gate_inp_shexp=torch.randn((1, e), generator=gen) * 0.1,
+                         ffn_gate_shexp=q(f, e), ffn_up_shexp=q(f, e), ffn_down_shexp=q8(e, f))
+        params["layers"].append(layer)
+    return cfg, params
+
+
+def params_to(tree, device):
+    """A params tree with every tensor (and every QTensor's) on `device`."""
+    import torch
+
+    from prima_tpu_torch.quant.qtensor import QTensor
+
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, **{f: None if a is None else a.to(device)
+                                           for f, a in zip(("qs", "scales", "mins", "d", "dmin"),
+                                                           tree.tensors())})
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def arch_streams(cfg, params, device: str, impl: str) -> list[list[int]]:
+    """Greedy tokens of 4 seeded prompts of 40-60 tokens, 32 each, f32
+    activations and KV, through Engine.submit + step_fused (2 slots)."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(cfg, params_to(params, device), n_slots=2, max_seq=128, n_batch=64,
+                 device=device, kv_dtype=torch.float32,
+                 opts=ForwardOptions(matmul_impl=impl, attn_impl=impl, dtype=torch.float32))
+    rng = np.random.default_rng(5)
+    return engine_streams(eng, [rng.integers(0, cfg.n_vocab, int(n)).tolist()
+                                for n in (40, 47, 53, 60)])
+
+
 def phase_tiny_parity(report: dict) -> None:
     from prima_tpu_torch.ops import attention as attn
+    from prima_tpu_torch.quant import qmatmul as qm
 
     report["tiny_parity"] = {}
+    # the decoder's arch branches: the card with every kernel (the flash
+    # route falls back to plain attention for softcap and sliding windows,
+    # as in the JAX package) against the CPU's plain path
+    for name in ("gemma2", "qwen2moe"):
+        cfg, params = tiny_arch(name)
+        before = qm.indexed_launches.count
+        card = arch_streams(cfg, params, "cuda", "kernel")
+        indexed = qm.indexed_launches.count - before
+        cpu = arch_streams(cfg, params, "cpu", "plain")
+        log(f"tiny {name} greedy (card, kernels; {indexed} indexed GEMV launches):", card)
+        if card != cpu:
+            raise AssertionError(f"tiny {name} streams differ: card {card} cpu {cpu}")
+        if (name == "qwen2moe") != (indexed > 0):
+            raise AssertionError(f"tiny {name}: {indexed} indexed GEMV launches")
+        report["tiny_parity"][name] = {"prompts": 4, "tokens": sum(map(len, card)),
+                                       "indexed_launches": indexed, "identical": True}
     for name, attn_impl, kw, repeat in PARITY:
         before = attn.decode_launches.count + attn.prefill_launches.count
         card = greedy_streams("cuda", "kernel", attn_impl, repeat, **kw)
@@ -869,7 +1075,9 @@ def phase_tiny_parity(report: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-KERNEL_NAMES = {"qgemv": ("qgemv_mma", "qgemv_fma"), "kv_write": ("kv_write_kernel",),
+# a kernel's time goes to the first entry whose names it matches
+KERNEL_NAMES = {"qgemv_indexed": ("qgemv_mma_indexed", "qgemv_fma_indexed"),
+                "qgemv": ("qgemv_mma", "qgemv_fma"), "kv_write": ("kv_write_kernel",),
                 "kv_store": ("kv_store_dense", "kv_store_quant"),
                 "flash_decode": ("decode_mma", "decode_f32"),
                 "flash_prefill": ("prefill_mma", "prefill_f32", "prefill_combine")}
@@ -884,9 +1092,11 @@ def device_ms(prof) -> tuple[dict, list]:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    by = {k: sum(t for n, t in by_name.items() if any(m in n for m in ms))
-          for k, ms in KERNEL_NAMES.items()}
-    by["other"] = sum(by_name.values()) - sum(by.values())
+    by = dict.fromkeys(KERNEL_NAMES, 0.0)
+    by["other"] = 0.0
+    for n, t in by_name.items():
+        key = next((k for k, ms in KERNEL_NAMES.items() if any(m in n for m in ms)), "other")
+        by[key] += t
     if not sum(by.values()):
         raise AssertionError("the profiler saw no device time")
     return by, [(n[:80], t) for n, t in by_name.most_common(8)]
@@ -1190,10 +1400,104 @@ def phase_long(dev, report: dict, cfg, params) -> dict:
     return launches
 
 
+def weights_mixtral(dev):
+    """Mixtral-8x7B at full width and depth, Q4_K weights generated on the
+    card: the stacked experts of each layer as one QTensor of 8 * N rows a
+    projection (the layout the loader gives), the router in f32."""
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import synth_qtensor_device
+
+    cfg = tiny_config(**MIXTRAL)
+    e, h, kvh, hd, f, n_exp = (cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                               cfg.n_ff, cfg.n_expert)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    t0 = time.time()
+    q = lambda rows, k: synth_qtensor_device(gen, rows, k, GGMLType.Q4_K, dev)
+    ones = lambda: torch.ones(e, dtype=torch.float32, device=dev)
+    params = {"tok_embd": q(cfg.n_vocab, e), "output": q(cfg.n_vocab, e),
+              "output_norm": ones(), "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": ones(), "wq": q(h * hd, e), "wk": q(kvh * hd, e),
+            "wv": q(kvh * hd, e), "wo": q(e, h * hd), "ffn_norm": ones(),
+            "ffn_gate_inp": torch.randn((n_exp, e), generator=gen, device=dev) * 0.02,
+            "ffn_gate_exps": q(n_exp * f, e), "ffn_up_exps": q(n_exp * f, e),
+            "ffn_down_exps": q(n_exp * e, f)})
+    torch.cuda.synchronize()
+    log(f"Mixtral-8x7B-shape Q4_K weights ({cfg.n_layers} layers, "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB on the card) generated in "
+        f"{time.time() - t0:.1f} s")
+    return cfg, params
+
+
+def phase_moe(dev, report: dict) -> dict:
+    """Mixtral-8x7B at full width: Engine(n_slots=4, max_seq=4096,
+    attn_impl="kernel") serves 4 requests of 480-512 seeded prompt tokens
+    and 32 greedy tokens; the launch counts of every kernel in that run; a
+    decode chunk profiled; one decode step's logits near position 400 over
+    seeded f32 caches, every kernel against every plain version."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+    from prima_tpu_torch.ops import attention as attn
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.quant import qmatmul as qm
+    from prima_tpu_torch.runtime.engine import Engine
+
+    cfg, params = weights_mixtral(dev)
+    counters = {"qgemv": qm.launches, "qgemv_indexed": qm.indexed_launches,
+                "kv_store": kvw.store_launches, "flash_decode": attn.decode_launches,
+                "flash_prefill": attn.prefill_launches}
+    eng = Engine(cfg, params, n_slots=4, max_seq=4096, device=dev,
+                 opts=ForwardOptions(attn_impl="kernel"))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.n_vocab, int(n)).tolist()
+               for n in rng.integers(480, 513, 4)]
+    moe = serve_long(eng, prompts, 32, counters, dev)
+    log("Mixtral-8x7B engine", json.dumps(moe))
+    if not moe["launches"]["qgemv_indexed"]:
+        raise AssertionError("the Mixtral decode ran without the indexed GEMV")
+    moe["profile"] = profile_decode(eng, prompts)
+    log("Mixtral decode chunk profile", json.dumps(moe["profile"]))
+    if not moe["profile"]["device_ms"]["qgemv_indexed"] > 0:
+        raise AssertionError("the profiled Mixtral decode chunk shows no indexed GEMV time")
+    del eng
+    gc.collect()  # the engine sits in a reference cycle with its generator
+    torch.cuda.empty_cache()
+
+    # one decode step of 4 rows near position 400 over seeded f32 caches
+    pos0 = [400, 431, 390, 460]
+    toks = torch.as_tensor(rng.integers(0, cfg.n_vocab, (4, 1)), device=dev)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    kv = init_kv_caches(cfg, 4, 512, torch.float32, dev)
+    for pair in kv:
+        for c in pair:
+            c.copy_(torch.randn(c.shape, generator=gen, device=dev))
+    logits = {}
+    for impl in ("kernel", "plain"):
+        with torch.no_grad():
+            logits[impl], _ = forward(
+                params, cfg, toks, pos[:, None], kv, pos,
+                ForwardOptions(matmul_impl=impl, attn_impl=impl, dtype=torch.float32))
+    check_logits(moe, logits, "Mixtral decode step")
+    del kv, logits, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["moe"] = moe
+    return moe["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,server,full,long",
-                    help="comma-separated subset of build,kernels,server,full,long")
+    ap.add_argument("--phases", default="build,kernels,server,full,long,moe",
+                    help="comma-separated subset of build,kernels,server,full,long,moe")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1219,6 +1523,11 @@ def main() -> int:
     report = {
         "qgemv": {"name": "qgemv", "route": "cuda", "source": "prima_tpu_torch/" + qm.SOURCE,
                   "replaces": "prima_tpu/quant/pallas/qmatmul.py:196 _qmm_kernel"},
+        "qgemv_indexed": {"name": "qgemv_indexed", "route": "cuda",
+                          "source": "prima_tpu_torch/" + qm.SOURCE,
+                          "replaces": "prima_tpu/quant/pallas/qmatmul.py:196 _qmm_kernel "
+                                      "(under prima_tpu/models/llama.py:1080-1086 moe_ffn's "
+                                      "dynamic slice of the stacked experts)"},
         "kv_write": {"name": "kv_write", "route": "cuda",
                      "source": "prima_tpu_torch/" + kvw.SOURCE,
                      "replaces": "prima_tpu/ops/kv_pallas.py:33 _kv_write_kernel"},
@@ -1255,10 +1564,11 @@ def main() -> int:
         phase_server(report)
         phase_tiny_parity(report)
         log(f"server: {time.time() - t0:.1f} s")
-    # launches are counted only by the main path's run: the long phase (its
-    # bf16 run), which runs the GEMV, the KV store and both flash kernels;
-    # the KV write's by the server that restored a slot; the probe's by its
-    # own entry point
+    # launches are counted only by the main paths' runs, each with the counts
+    # set to 0 just before and read just after: the long phase (its bf16
+    # run), which runs the GEMV, the KV store and both flash kernels; the moe
+    # phase's serving run, for the expert-indexed GEMV; the KV write's by the
+    # server that restored a slot; the probe's by its own entry point
     launches = dict.fromkeys(("qgemv", "kv_store", "flash_decode", "flash_prefill"))
     if phases & {"full", "long"}:
         cfg, params = weights_8b(dev)
@@ -1270,13 +1580,23 @@ def main() -> int:
         t0 = time.time()
         launches = dict(phase_long(dev, report, cfg, params))
         log(f"long: {time.time() - t0:.1f} s")
+    if phases & {"full", "long"}:
+        del params  # the 8B weights make room for Mixtral's
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches["qgemv_indexed"] = None
+    if "moe" in phases:
+        t0 = time.time()
+        launches["qgemv_indexed"] = phase_moe(dev, report)["qgemv_indexed"]
+        log(f"moe: {time.time() - t0:.1f} s")
     launches["kv_write"] = report.get("server_long_context", {}).get(
         "launches", {}).get("kv_write")
     launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name in ("qgemv", "kv_write", "kv_store", "flash_decode", "flash_prefill", "hbm_probe"):
+    for name in ("qgemv", "qgemv_indexed", "kv_write", "kv_store", "flash_decode",
+                 "flash_prefill", "hbm_probe"):
         r = dict(report[name], launches=launches[name])
         kernels.append({k: r.get(k) for k in keys}
                        | {k: v for k, v in r.items() if k not in keys})

@@ -1,11 +1,14 @@
-"""Llama / Qwen2 decoder: GGUF weight loading and the forward pass.
+"""The decoder of every arch in the config table: GGUF weight loading and
+the forward pass.
 
-Counterpart of prima_tpu/models/llama.py. Parameters are a dict of tensors
-and QTensors on one device; KV caches are tensors (or KVQ8 / KVQ4) written
-in place (the JAX forward returns updated copies instead). Attention takes
-the plain `gqa_attention` or, with attn_impl="kernel", the flash kernels.
-This slice ports the dense llama / qwen2 path: arch flags of other
-families raise NotImplementedError instead of being ignored.
+Counterpart of prima_tpu/models/llama.py on a single device. Parameters are
+a dict of tensors and QTensors on one device; KV caches are tensors (or
+KVQ8 / KVQ4) written in place (the JAX forward returns updated copies
+instead). Attention takes the plain `gqa_attention` or, with
+attn_impl="kernel", the flash kernels (not for softcap, sliding-window or
+ALiBi attention, which they do not compute). Mixture-of-experts layers run
+their experts through the expert-indexed GEMV at decode. Control vectors
+and LoRA adapters are not ported yet: a layer that carries one raises.
 """
 
 from __future__ import annotations
@@ -20,11 +23,11 @@ from ..gguf.constants import GGMLType, TYPE_TRAITS
 from ..gguf.reader import GGUFModel, TensorInfo
 from ..ops.attention import flash_attention
 from ..ops.kvquant import KVQ4, KVQ8, update_kv_pair
-from ..ops.layers import (apply_rope, causal_mask, gated_act, gqa_attention,
-                          rms_norm, rope_freqs)
+from ..ops.layers import (alibi_mask, alibi_slopes, apply_rope, causal_mask, gated_act,
+                          gqa_attention, layer_norm, rms_norm, rope_freqs)
 from ..quant.dequant_np import dequantize_tensor
 from ..quant.device_format import SUPPORTED_TYPES, UQTensor, to_device_format
-from ..quant.qmatmul import qmatmul
+from ..quant.qmatmul import MAX_B, qgemv_indexed_plain, qmatmul, qmatmul_indexed
 from ..quant.qtensor import QTensor, dequant_rows, qmatmul_plain
 from .config import ModelConfig
 
@@ -80,12 +83,48 @@ def _fuse_tensor_rows(tis: Sequence[TensorInfo], device):
     return QTensor.from_host(to_device_format(raw, t0, k), device)
 
 
+def _split_tensor_rows(ti: TensorInfo, dtype, device, bounds: Sequence[int]) -> list:
+    """A GGUF tensor cut along output rows at `bounds` (fused qkv or
+    gate+up): quant blocks slice cleanly by row."""
+    t, k = ti.ggml_type, ti.ne[0]
+    if TYPE_TRAITS[t].is_quantized and t in SUPPORTED_TYPES:
+        raw = np.asarray(ti.data).reshape(ti.n_elements // k, -1)
+        return [QTensor.from_host(to_device_format(np.ascontiguousarray(raw[r0:r1]), t, k),
+                                  device) for r0, r1 in zip(bounds[:-1], bounds[1:])]
+    full = torch.from_numpy(dequantize_tensor(ti).astype(np.float32)).reshape(-1, k)
+    return [full[r0:r1].to(device=device, dtype=dtype) for r0, r1 in zip(bounds[:-1], bounds[1:])]
+
+
+def _stack_experts(w, n_expert: int):
+    """Stacked expert weights. A QTensor keeps its E * N rows (expert e is
+    rows [e N, (e + 1) N), as the GGUF stores them, which is what the
+    expert-indexed GEMV reads); a dense tensor becomes (E, N, K)."""
+    if isinstance(w, QTensor) or (w.dim() == 3 and w.shape[0] == n_expert):
+        return w
+    return w.reshape(n_expert, w.shape[0] // n_expert, *w.shape[1:])
+
+
+# optional per-layer tensors: GGUF name -> params key
+_OPTIONAL = (("attn_q_norm.weight", "attn_q_norm"), ("attn_k_norm.weight", "attn_k_norm"),
+             ("attn_q_norm.bias", "attn_q_norm_b"), ("attn_k_norm.bias", "attn_k_norm_b"),
+             ("attn_norm.bias", "attn_norm_b"), ("ffn_norm.bias", "ffn_norm_b"),
+             ("attn_output.bias", "bo"), ("ffn_up.bias", "b_up"),
+             ("ffn_gate.bias", "b_gate"), ("ffn_down.bias", "b_down"),
+             # bitnet: RMS sub-norms and per-tensor scales
+             ("attn_sub_norm.weight", "attn_sub_norm"), ("ffn_sub_norm.weight", "ffn_sub_norm"),
+             ("attn_q.scale", "wq_scale"), ("attn_k.scale", "wk_scale"),
+             ("attn_v.scale", "wv_scale"), ("attn_output.scale", "wo_scale"),
+             ("ffn_up.scale", "w_up_scale"), ("ffn_gate.scale", "w_gate_scale"),
+             ("ffn_down.scale", "w_down_scale"))
+
+
 def load_params(m: GGUFModel, cfg: ModelConfig, device, dtype=torch.bfloat16,
                 fuse: bool = False) -> dict:
-    """Params dict from a GGUF model (the llama / qwen2 tensor tables).
-    fuse=True concatenates Q/K/V and gate/up into wqkv / w_gateup where
-    their quant types match: fewer GEMV launches, identical numerics."""
-    _check_arch(cfg)
+    """Params dict from a GGUF model: the tensor tables of every arch the
+    decoder serves (prima_tpu/models/llama.py:163-365). fuse=True
+    concatenates Q/K/V and gate/up into wqkv / w_gateup where their quant
+    types match and no bias, scale or sub-norm sits between them: fewer
+    GEMV launches, identical numerics."""
     t = m.tensors
 
     def get(name, dense=False, required=True):
@@ -96,35 +135,105 @@ def load_params(m: GGUFModel, cfg: ModelConfig, device, dtype=torch.bfloat16,
             return None
         return _to_device_tensor(ti, dtype, device, dense)
 
+    def first(*names):
+        """The first of `names` the file holds, dense, or None."""
+        return next((get(n, dense=True) for n in names if n in t), None)
+
+    def add_optional(dst: dict, table, prefix: str = "") -> None:
+        for name, key in table:
+            if prefix + name in t:
+                dst[key] = get(prefix + name, dense=True)
+
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ln = cfg.norm_type != "rms"
     params: dict[str, Any] = {"tok_embd": get("token_embd.weight"), "layers": []}
+    add_optional(params, (("position_embd.weight", "pos_embd"),
+                          ("token_embd_norm.weight", "tok_embd_norm"),
+                          ("token_embd_norm.bias", "tok_embd_norm_b")))
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
         layer = {
-            "attn_norm": get(p + "attn_norm.weight", dense=True),
+            # LN archs may omit norm weights (OLMo's non-parametric norm) or
+            # the ffn_norm (command-r's parallel block)
+            "attn_norm": get(p + "attn_norm.weight", dense=True, required=not ln),
             "wo": get(p + "attn_output.weight"),
-            "ffn_norm": get(p + "ffn_norm.weight", dense=True),
-            "w_down": get(p + "ffn_down.weight"),
+            "ffn_norm": get(p + "ffn_norm.weight", dense=True,
+                            required=not (ln or cfg.parallel_block)),
         }
-        qkv = [t[p + n] for n in ("attn_q.weight", "attn_k.weight", "attn_v.weight")]
-        fused = _fuse_tensor_rows(qkv, device) if fuse else None
-        if fused is not None:
-            layer["wqkv"] = fused
+        if layer["ffn_norm"] is None:
+            layer["ffn_norm"] = first(p + "attn_out_norm.weight")  # dbrx's pre-MoE norm
+        if (p + "attn_norm_2.weight") in t:  # falcon-40b: the parallel MLP's own norm
+            layer["ffn_norm"] = get(p + "attn_norm_2.weight", dense=True)
+            add_optional(layer, (("attn_norm_2.bias", "ffn_norm_b"),), p)
+        if (p + "attn_qkv.weight") in t:  # phi3 / openelm: fused qkv, by rows
+            hi = cfg.n_heads_arr[i] if cfg.n_heads_arr else h
+            kvi = cfg.n_kv_heads_arr[i] if cfg.n_kv_heads_arr else kvh
+            nq, nk = hi * hd, kvi * hd
+            layer["wq"], layer["wk"], layer["wv"] = _split_tensor_rows(
+                t[p + "attn_qkv.weight"], dtype, device, [0, nq, nq + nk, nq + 2 * nk])
         else:
-            layer["wq"], layer["wk"], layer["wv"] = (
-                _to_device_tensor(ti, dtype, device) for ti in qkv)
-        gu = [t[p + "ffn_gate.weight"], t[p + "ffn_up.weight"]]
-        fused = _fuse_tensor_rows(gu, device) if fuse else None
-        if fused is not None:
-            layer["w_gateup"] = fused
+            qkv = [t[p + n] for n in ("attn_q.weight", "attn_k.weight", "attn_v.weight")]
+            fused = (_fuse_tensor_rows(qkv, device)
+                     if fuse and not (cfg.n_heads_arr or cfg.n_kv_heads_arr) else None)
+            if fused is not None:
+                layer["wqkv"] = fused
+            else:
+                layer["wq"], layer["wk"], layer["wv"] = (
+                    _to_device_tensor(ti, dtype, device) for ti in qkv)
+        if cfg.n_expert and (p + "ffn_gate_inp.weight") in t:
+            # router and stacked experts (Mixtral, qwen2moe, grok, ...)
+            layer["ffn_gate_inp"] = get(p + "ffn_gate_inp.weight", dense=True)
+            for key in ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"):
+                layer[key] = _stack_experts(get(p + key + ".weight"), cfg.n_expert)
+            if (p + "ffn_gate_inp_shexp.weight") in t:  # qwen2moe's shared expert
+                layer["ffn_gate_inp_shexp"] = get(p + "ffn_gate_inp_shexp.weight", dense=True)
+                for key in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"):
+                    layer[key] = get(p + key + ".weight")
+            if cfg.moe_parallel_dense:  # arctic: a dense FFN beside the experts
+                for key, name in (("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
+                                  ("w_down", "ffn_down")):
+                    layer[key] = get(p + name + ".weight", required=False)
+                layer["ffn_norm_exps"] = first(p + "ffn_norm_exps.weight")
+        elif not cfg.ffn_gated:  # starcoder2 and kin: up -> act -> down
+            layer["w_up"] = get(p + "ffn_up.weight")
+            layer["w_down"] = get(p + "ffn_down.weight")
+        elif (p + "ffn_gate.weight") not in t and (p + "ffn_up.weight") in t:
+            # phi3: fused gate+up, rows [0, n_ff) the gate, [n_ff, 2 n_ff) up
+            layer["w_gate"], layer["w_up"] = _split_tensor_rows(
+                t[p + "ffn_up.weight"], dtype, device, [0, cfg.n_ff, 2 * cfg.n_ff])
+            layer["w_down"] = get(p + "ffn_down.weight")
         else:
-            layer["w_gate"], layer["w_up"] = (
-                _to_device_tensor(ti, dtype, device) for ti in gu)
-        if cfg.qkv_bias or (p + "attn_q.bias") in t:
+            gu = [t[p + "ffn_gate.weight"], t[p + "ffn_up.weight"]]
+            fused = None
+            if fuse and not any((p + n) in t for n in (
+                    "ffn_gate.bias", "ffn_up.bias", "ffn_gate.scale", "ffn_up.scale",
+                    "ffn_down.scale", "ffn_sub_norm.weight")):
+                fused = _fuse_tensor_rows(gu, device)
+            if fused is not None:
+                layer["w_gateup"] = fused
+            else:
+                layer["w_gate"], layer["w_up"] = (
+                    _to_device_tensor(ti, dtype, device) for ti in gu)
+            layer["w_down"] = get(p + "ffn_down.weight")
+        if cfg.post_norms:  # gemma2 / grok, under three names
+            layer["attn_post_norm"] = first(p + "post_attention_norm.weight",
+                                            p + "attn_out_norm.weight")
+            layer["ffn_post_norm"] = first(p + "post_ffw_norm.weight",
+                                           p + "layer_output_norm.weight",
+                                           p + "layer_out_norm.weight")
+        if (p + "attn_qkv.bias") in t:  # phi2: fused qkv bias
+            bqkv = get(p + "attn_qkv.bias", dense=True)
+            nq, nk = h * hd, kvh * hd
+            layer["bq"], layer["bk"], layer["bv"] = (
+                bqkv[:nq], bqkv[nq:nq + nk], bqkv[nq + nk:nq + 2 * nk])
+        elif cfg.qkv_bias or (p + "attn_q.bias") in t:
             layer["bq"] = get(p + "attn_q.bias", dense=True)
             layer["bk"] = get(p + "attn_k.bias", dense=True)
             layer["bv"] = get(p + "attn_v.bias", dense=True)
+        add_optional(layer, _OPTIONAL, p)
         params["layers"].append(layer)
-    params["output_norm"] = get("output_norm.weight", dense=True)
+    params["output_norm"] = get("output_norm.weight", dense=True, required=not ln)
+    add_optional(params, (("output_norm.bias", "output_norm_b"), ("output.bias", "output_b")))
     params["output"] = None if cfg.tie_embeddings else get("output.weight")
     return params
 
@@ -136,8 +245,15 @@ def params_from_numpy(tree, device):
     (qs, scales, mins, d, dmin, sub, layout, q_offset, shape, kperm, gsub,
     packed); dense arrays come as numpy arrays. The sigma column order
     (kperm) and the sigma-ordered packed codes are undone, then the tensor
-    is repacked in the port's natural layout."""
+    is repacked in the port's natural layout. Stacked experts (fields with
+    a leading expert axis) carry across expert by expert into the E * N
+    rows the port's loader gives."""
     if isinstance(tree, dict) and "qs" in tree and "layout" in tree:
+        if np.ndim(tree["qs"]) == 3:
+            return QTensor.from_host(_cat_uq_rows([
+                _natural_uq({k: v[e] if isinstance(v, np.ndarray) else v
+                             for k, v in tree.items()})
+                for e in range(tree["qs"].shape[0])]), device)
         return QTensor.from_host(_natural_uq(tree), device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
@@ -146,6 +262,16 @@ def params_from_numpy(tree, device):
     if tree is None:
         return None
     return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+
+
+def _cat_uq_rows(uqs: list) -> UQTensor:
+    """Host UQTensors of one format concatenated along their rows."""
+    u0 = uqs[0]
+    cat = lambda f: (None if getattr(u0, f) is None
+                     else np.concatenate([getattr(u, f) for u in uqs]))
+    return UQTensor(cat("qs"), cat("scales"), cat("mins"), u0.sub, u0.layout, u0.q_offset,
+                    None, (sum(u.shape[0] for u in uqs), u0.shape[1]), d=cat("d"),
+                    dmin=cat("dmin"), gsub=u0.gsub)
 
 
 def _f16_bits_np(bits: np.ndarray) -> np.ndarray:
@@ -272,27 +398,14 @@ class ForwardOptions:
     logits_dtype: torch.dtype = torch.float32
 
 
-_UNPORTED = (  # ModelConfig flags whose forward branches are not ported yet
-    ("n_expert", "mixture-of-experts FFN"), ("alibi_max_bias", "ALiBi"),
-    ("attn_logit_softcap", "attention softcap"),
-    ("final_logit_softcap", "final logit softcap"),
-    ("swa_window", "sliding-window attention"), ("post_norms", "post norms"),
-    ("sub_norms", "sub norms"), ("parallel_block", "parallel block"),
-    ("clamp_kqv", "q/k/v clamping"), ("qk_norm_head", "q/k norms"),
-    ("swin_norm", "swin norm"), ("moe_parallel_dense", "parallel MoE"),
-    ("pos_embd", "learned positions"), ("tok_embd_norm", "embedding norm"),
-    ("n_heads_arr", "per-layer head counts"),
-)
-
-
-def _check_arch(cfg: ModelConfig) -> None:
-    for flag, what in _UNPORTED:
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{what} ({cfg.arch}) is not ported yet")
-    if cfg.norm_type != "rms" or not cfg.ffn_gated or not cfg.rope_dim:
-        raise NotImplementedError(f"the {cfg.arch} block layout is not ported yet")
-    if (cfg.embd_scale, cfg.logit_scale, cfg.residual_scale) != (1.0, 1.0, 1.0):
-        raise NotImplementedError(f"{cfg.arch} scale factors are not ported yet")
+def _check_layer(layer: dict) -> None:
+    """Control vectors and LoRA adapters wait for the adapters slice: a
+    layer that carries one raises instead of being ignored."""
+    if layer.get("cvec") is not None:
+        raise NotImplementedError("control vectors (cvec) are not ported yet")
+    lora = [k for k in layer if k.endswith("_lora")]
+    if lora:
+        raise NotImplementedError(f"LoRA adapters ({', '.join(lora)}) are not ported yet")
 
 
 def _flash_route(cfg: ModelConfig, opts: ForwardOptions) -> bool:
@@ -304,29 +417,65 @@ def _flash_route(cfg: ModelConfig, opts: ForwardOptions) -> bool:
             and not cfg.swa_window and not cfg.alibi_max_bias)
 
 
+def model_norm(x: torch.Tensor, w, b, cfg: ModelConfig) -> torch.Tensor:
+    """The arch's norm: RMSNorm, or LayerNorm (weight and bias optional)."""
+    if cfg.norm_type == "rms":
+        return rms_norm(x, w, cfg.rms_eps)
+    return layer_norm(x, w, b, cfg.rms_eps)
+
+
+def _scaled(y: torch.Tensor, layer: dict, key: str) -> torch.Tensor:
+    """y times the layer's per-tensor scale `key` (bitnet), where it has one."""
+    sc = layer.get(key)
+    return y if sc is None else y * sc.to(y.dtype)
+
+
+def _biased(y: torch.Tensor, layer: dict, key: str) -> torch.Tensor:
+    b = layer.get(key)
+    return y if b is None else y + b.to(y.dtype)
+
+
 def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, kv: tuple, cache_pos: torch.Tensor,
                     mask: torch.Tensor | None, inv_freq: torch.Tensor, mscale: float,
-                    opts: ForwardOptions,
-                    mask_pos: torch.Tensor | None = None) -> torch.Tensor:
+                    opts: ForwardOptions, mask_pos: torch.Tensor | None = None,
+                    heads: tuple[int, int] | None = None) -> torch.Tensor:
     """x (b, s, e) normed input. Writes this step's K/V into the caches in
     place and returns the attention output (b, s, e). Visibility follows
     mask_pos (the physical cache order) where given, else positions; the
-    two differ only under Self-Extend."""
+    two differ only under Self-Extend. heads is a layer's own (h, kvh)
+    (openelm)."""
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h, kvh = heads if heads is not None else (cfg.n_heads, cfg.n_kv_heads)
     if layer.get("wqkv") is not None:
         qkv = linear(x, layer["wqkv"], opts.matmul_impl)
         q, k, v = qkv.split([h * hd, kvh * hd, kvh * hd], dim=-1)
     else:
         q, k, v = (linear(x, layer[n], opts.matmul_impl) for n in ("wq", "wk", "wv"))
-    if layer.get("bq") is not None:
-        q = q + layer["bq"].to(q.dtype)
-        k = k + layer["bk"].to(k.dtype)
-        v = v + layer["bv"].to(v.dtype)
-    q = apply_rope(q.reshape(b, s, h, hd), positions, inv_freq, cfg.rope_type, mscale)
-    k = apply_rope(k.reshape(b, s, kvh, hd), positions, inv_freq, cfg.rope_type, mscale)
+    q, k, v = (_biased(_scaled(a, layer, f"w{n}_scale"), layer, f"b{n}")
+               for a, n in zip((q, k, v), "qkv"))
+    if cfg.clamp_kqv:  # olmo / dbrx / mpt
+        c = float(np.float32(cfg.clamp_kqv))
+        q, k, v = (a.clamp(-c, c) for a in (q, k, v))
+    if layer.get("attn_q_norm") is not None and not cfg.qk_norm_head:
+        # olmoe: RMS over the whole q / k vectors
+        q = rms_norm(q, layer["attn_q_norm"], cfg.rms_eps)
+        k = rms_norm(k, layer["attn_k_norm"], cfg.rms_eps)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
+    if cfg.qk_norm_head and layer.get("attn_q_norm") is not None:
+        # per-head norms before RoPE: LayerNorm (chameleon) or RMS (openelm)
+        if cfg.qk_norm_rms:
+            q = rms_norm(q, layer["attn_q_norm"], cfg.rms_eps)
+            k = rms_norm(k, layer["attn_k_norm"], cfg.rms_eps)
+        else:
+            q = layer_norm(q, layer["attn_q_norm"], layer.get("attn_q_norm_b"), cfg.rms_eps)
+            k = layer_norm(k, layer["attn_k_norm"], layer.get("attn_k_norm_b"), cfg.rms_eps)
+    if cfg.rope_dim:  # learned positions (gpt2) and ALiBi archs have no RoPE
+        q = apply_rope(q, positions, inv_freq, cfg.rope_type, mscale)
+        k = apply_rope(k, positions, inv_freq, cfg.rope_type, mscale)
     k_cache, v_cache = kv
     update_kv_pair(k_cache, v_cache, k, v, cache_pos)
     scale = cfg.attn_scale or 1.0 / np.sqrt(hd)
@@ -336,28 +485,165 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         mp = positions if mask_pos is None else mask_pos
         out = flash_attention(q, k_cache, v_cache, mp.to(torch.int32), scale)
     else:
-        out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, scale)
-    return linear(out.reshape(b, s, h * hd), layer["wo"], opts.matmul_impl)
+        slopes = (alibi_slopes(h, cfg.alibi_max_bias) if cfg.alibi_max_bias else None)
+        out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, scale,
+                            cfg.attn_logit_softcap, slopes)
+    out = out.reshape(b, s, h * hd)
+    if cfg.sub_norms and layer.get("attn_sub_norm") is not None:
+        out = rms_norm(out, layer["attn_sub_norm"], cfg.rms_eps)  # bitnet, before wo
+    out = _scaled(linear(out, layer["wo"], opts.matmul_impl), layer, "wo_scale")
+    return _biased(out, layer, "bo")
 
 
-def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions,
-              act_fn: str = "silu") -> torch.Tensor:
-    if layer.get("w_gateup") is not None:
+def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions, act_fn: str = "silu",
+              gated: bool = True, eps: float = 1e-5) -> torch.Tensor:
+    """The dense FFN: gated (SwiGLU / GeGLU / squared ReLU), chatglm's
+    [gate | up] split of one projection, or a plain up -> act -> down MLP;
+    with the biases, bitnet scales and sub-norm a layer carries."""
+    if gated and layer.get("w_gateup") is not None:
         gate, up = linear(x, layer["w_gateup"], opts.matmul_impl).chunk(2, dim=-1)
+        out = linear(gated_act(gate, up, act_fn), layer["w_down"], opts.matmul_impl)
+        return _biased(out, layer, "b_down")
+    up = _biased(_scaled(linear(x, layer["w_up"], opts.matmul_impl), layer, "w_up_scale"),
+                 layer, "b_up")
+    if gated:
+        gate = _biased(_scaled(linear(x, layer["w_gate"], opts.matmul_impl), layer,
+                               "w_gate_scale"), layer, "b_gate")
+        act = gated_act(gate, up, act_fn)
+    elif act_fn == "swiglu_split":  # chatglm: ffn_up holds [gate | up]
+        gate, up = up.chunk(2, dim=-1)
+        act = gated_act(gate, up, "silu")
+    else:  # starcoder2 and kin: act(up), ggml's tanh GELU
+        act = gated_act(up, torch.ones((), dtype=up.dtype, device=up.device), act_fn)
+    if layer.get("ffn_sub_norm") is not None:
+        act = rms_norm(act, layer["ffn_sub_norm"], eps)  # bitnet, before ffn_down
+    out = _scaled(linear(act, layer["w_down"], opts.matmul_impl), layer, "w_down_scale")
+    return _biased(out, layer, "b_down")
+
+
+def expert_rows(w, e: int, n_expert: int):
+    """Expert e of stacked expert weights: a QTensor view of its row range,
+    or the (N, K) slice of a dense (E, N, K) tensor."""
+    if not isinstance(w, QTensor):
+        return w[e]
+    n = w.n_rows // n_expert
+    return w.rows(e * n, (e + 1) * n)
+
+
+def expert_linear(x: torch.Tensor, w, ids: torch.Tensor, n_expert: int,
+                  impl: str = "kernel") -> torch.Tensor:
+    """Row p of x (P, K) through expert ids[p] of stacked weights -> (P, N)
+    in x's dtype: quantized experts through the expert-indexed GEMV (its
+    plain version for impl "plain"), dense ones as a gathered product."""
+    if isinstance(w, QTensor):
+        n = w.n_rows // n_expert
+        if impl == "plain":
+            return qgemv_indexed_plain(x, w, ids, n)
+        if impl != "kernel":
+            raise ValueError(f"unknown matmul_impl {impl!r}")
+        return qmatmul_indexed(x, w, ids, n)
+    return torch.einsum("pk,pnk->pn", x.float(), w[ids.long()].float()).to(x.dtype)
+
+
+def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
+            opts: ForwardOptions) -> torch.Tensor:
+    """Mixture-of-experts FFN (prima_tpu/models/llama.py:1058-1108). The
+    router runs in f32: softmax, top-k, normalized top-k weights unless
+    moe_norm_w is off (qwen2moe, olmoe). Fewer than MAX_B (row, expert)
+    pairs go through the expert-indexed GEMV, one launch a projection that
+    reads each pair's expert id on the device, summed in top-k order;
+    wider inputs loop over every expert in index order with zero weight
+    for the rows that did not pick it, as the JAX package does."""
+    b, s, e = x.shape
+    k_used, n_exp = cfg.n_expert_used, cfg.n_expert
+    probs = torch.softmax(linear(x, layer["ffn_gate_inp"], opts.matmul_impl).float(), -1)
+    w, ids = torch.topk(probs, k_used, dim=-1)  # (b, s, k), descending
+    if cfg.moe_norm_w:
+        w = w / w.sum(-1, keepdim=True)
+    stacked = (layer["ffn_gate_exps"], layer["ffn_up_exps"], layer["ffn_down_exps"])
+    rows = b * s
+    if rows * k_used < MAX_B:
+        xp = x.reshape(rows, e).repeat_interleave(k_used, dim=0)  # pair p: row p // k
+        idp = ids.reshape(-1).to(torch.int32)
+        gate, up = (expert_linear(xp, t, idp, n_exp, opts.matmul_impl) for t in stacked[:2])
+        y = expert_linear(gated_act(gate, up, cfg.act), stacked[2], idp, n_exp,
+                          opts.matmul_impl).reshape(rows, k_used, e)
+        wv = w.reshape(rows, k_used).to(x.dtype)
+        out = torch.zeros((rows, e), dtype=x.dtype, device=x.device)
+        for j in range(k_used):
+            out = out + wv[:, j:j + 1] * y[:, j]
+        out = out.reshape(b, s, e)
     else:
-        gate = linear(x, layer["w_gate"], opts.matmul_impl)
-        up = linear(x, layer["w_up"], opts.matmul_impl)
-    return linear(gated_act(gate, up, act_fn), layer["w_down"], opts.matmul_impl)
+        per_expert = torch.where(
+            ids[..., None, :] == torch.arange(n_exp, device=x.device)[:, None],
+            w[..., None, :], 0.0).sum(-1)  # (b, s, n_expert)
+        out = torch.zeros_like(x)
+        for ei in range(n_exp):
+            ge, ue, de = (expert_rows(t, ei, n_exp) for t in stacked)
+            gate, up = (linear(x, t, opts.matmul_impl) for t in (ge, ue))
+            y = linear(gated_act(gate, up, cfg.act), de, opts.matmul_impl)
+            out = out + per_expert[..., ei:ei + 1].to(x.dtype) * y
+    if layer.get("ffn_gate_inp_shexp") is not None:
+        # qwen2moe's shared expert: a dense FFN under a per-token sigmoid gate
+        g = torch.sigmoid(linear(x, layer["ffn_gate_inp_shexp"], opts.matmul_impl).float())
+        sh_gate, sh_up = (linear(x, layer[n], opts.matmul_impl)
+                          for n in ("ffn_gate_shexp", "ffn_up_shexp"))
+        sh = linear(gated_act(sh_gate, sh_up, cfg.act), layer["ffn_down_shexp"],
+                    opts.matmul_impl)
+        out = out + sh * g.to(x.dtype)
+    return out
 
 
 def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
                  cache_pos, mask, inv_freq, mscale, opts: ForwardOptions,
-                 mask_pos=None):
-    attn_in = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-    x = x + attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
-                            inv_freq, mscale, opts, mask_pos)
-    ffn_in = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
-    return x + ffn_block(layer, ffn_in, opts, cfg.act)
+                 mask_pos=None, heads: tuple[int, int] | None = None):
+    """One block (prima_tpu/models/llama.py:1111-1193): pre- or swin
+    (post-) norms, sequential or parallel attention and FFN, post norms,
+    the residual scale, the dense FFN or the experts (arctic: both)."""
+    _check_layer(layer)
+    norm = lambda v, key: model_norm(v, layer.get(key), layer.get(key + "_b"), cfg)
+    attn_in = x if cfg.swin_norm else norm(x, "attn_norm")
+    attn_out = attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
+                               inv_freq, mscale, opts, mask_pos, heads)
+    dense_ffn = lambda v: ffn_block(layer, v, opts, cfg.act, cfg.ffn_gated, cfg.rms_eps)
+    if cfg.parallel_block:
+        # command-r / phi2: the FFN shares the attention's normed input;
+        # gptneox-style blocks norm the layer input with their own ffn_norm
+        ffn_in = attn_in if layer.get("ffn_norm") is None else norm(x, "ffn_norm")
+        return x + attn_out + dense_ffn(ffn_in)
+    if cfg.post_norms and layer.get("attn_post_norm") is not None:
+        attn_out = rms_norm(attn_out, layer["attn_post_norm"], cfg.rms_eps)
+    if cfg.swin_norm:  # chameleon: the same attn_norm weights, after the branch
+        attn_out = norm(attn_out, "attn_norm")
+    if cfg.residual_scale != 1.0:  # minicpm / granite
+        attn_out = attn_out * float(np.float32(cfg.residual_scale))
+    if cfg.moe_parallel_dense and layer.get("ffn_gate_inp") is not None:
+        # arctic: the dense FFN off the post-attention residual, the experts
+        # off the layer input (ffn_norm_exps), summed
+        ffn_inp = x + attn_out
+        dense = ffn_block(layer, rms_norm(ffn_inp, layer["ffn_norm"], cfg.rms_eps), opts,
+                          cfg.act, True, cfg.rms_eps)
+        moe = moe_ffn(layer, cfg, rms_norm(x, layer["ffn_norm_exps"], cfg.rms_eps), opts)
+        return moe + dense + ffn_inp
+    x = x + attn_out
+    ffn_in = x if cfg.swin_norm else norm(x, "ffn_norm")
+    if cfg.n_expert and layer.get("ffn_gate_inp") is not None:
+        ffn_out = moe_ffn(layer, cfg, ffn_in, opts)
+    else:
+        ffn_out = dense_ffn(ffn_in)
+    if cfg.post_norms and layer.get("ffn_post_norm") is not None:
+        ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], cfg.rms_eps)
+    if cfg.swin_norm:
+        ffn_out = norm(ffn_out, "ffn_norm")
+    if cfg.residual_scale != 1.0:
+        ffn_out = ffn_out * float(np.float32(cfg.residual_scale))
+    return x + ffn_out
+
+
+def layer_heads(cfg: ModelConfig, i: int) -> tuple[int, int]:
+    """Layer i's (query heads, KV heads): per layer for openelm."""
+    return ((cfg.n_heads_arr[i] if cfg.n_heads_arr else cfg.n_heads),
+            (cfg.n_kv_heads_arr[i] if cfg.n_kv_heads_arr else cfg.n_kv_heads))
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -368,34 +654,57 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     (b, T, n_kv, hd), cache_pos (b,) int32 write index on the device.
     Returns (logits (b, s, V), kv_caches) — the caches are updated in place
     — or the pre-norm hidden states with return_hidden=True."""
-    _check_arch(cfg)
     x = embed(params["tok_embd"], tokens, opts.dtype)
+    if cfg.embd_scale != 1.0:  # gemma: sqrt(n_embd)
+        x = x * float(np.float32(cfg.embd_scale))
+    if params.get("pos_embd") is not None:  # gpt2 / starcoder: learned positions
+        x = x + params["pos_embd"][positions.long()].to(x.dtype)
+    if params.get("tok_embd_norm") is not None:  # bloom
+        x = layer_norm(x, params["tok_embd_norm"], params.get("tok_embd_norm_b"),
+                       cfg.rms_eps)
     inv_freq, mscale = rope_freqs(cfg, x.device)
     t_cache = kv_caches[0][0].shape[1]
-    # the flash kernels derive visibility from the positions themselves
-    mask = None if _flash_route(cfg, opts) else causal_mask(
-        positions if mask_positions is None else mask_positions, t_cache)
-    for layer, kv in zip(params["layers"], kv_caches):
-        x = decode_layer(layer, cfg, x, positions, kv, cache_pos, mask, inv_freq,
-                         mscale, opts, mask_positions)
+    mpos = positions if mask_positions is None else mask_positions
+    mask = mask_swa = None
+    if not _flash_route(cfg, opts):  # the flash kernels derive visibility themselves
+        mask = (alibi_mask(mpos, t_cache) if cfg.alibi_max_bias  # bloom / mpt
+                else causal_mask(mpos, t_cache))
+        if cfg.swa_window:  # gemma2: a sliding window on even layers
+            mask_swa = causal_mask(mpos, t_cache, swa_window=cfg.swa_window)
+    for i, (layer, kv) in enumerate(zip(params["layers"], kv_caches)):
+        m = mask_swa if mask_swa is not None and i % 2 == 0 else mask
+        heads = layer_heads(cfg, i) if cfg.n_heads_arr else None
+        x = decode_layer(layer, cfg, x, positions, kv, cache_pos, m, inv_freq, mscale,
+                         opts, mask_positions, heads)
     if return_hidden:
         return x, kv_caches
-    x = rms_norm(x, params["output_norm"], cfg.rms_eps)
+    x = model_norm(x, params.get("output_norm"), params.get("output_norm_b"), cfg)
+    if cfg.logit_scale != 1.0:  # minicpm / command-r / granite / grok
+        x = x * float(np.float32(cfg.logit_scale))
     w_out = params["output"] if params.get("output") is not None else params["tok_embd"]
-    return linear(x, w_out, opts.matmul_impl).to(opts.logits_dtype), kv_caches
+    logits = linear(x, w_out, opts.matmul_impl).to(opts.logits_dtype)
+    if params.get("output_b") is not None:  # phi2
+        logits = logits + params["output_b"].to(logits.dtype)
+    if cfg.final_logit_softcap:  # gemma2
+        cap = float(np.float32(cfg.final_logit_softcap))
+        logits = cap * torch.tanh(logits / cap)
+    return logits, kv_caches
 
 
 def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int,
                    dtype=torch.bfloat16, device=None) -> list:
-    """Per-layer (k, v) zero buffers (batch, max_seq, n_kv, head_dim): dense
-    tensors of a torch dtype, or KVQ8 / KVQ4 for "q8_0" / "q4_0"."""
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    """Per-layer (k, v) zero buffers (batch, max_seq, kvh, head_dim), kvh
+    the layer's own KV heads: dense tensors of a torch dtype, or KVQ8 /
+    KVQ4 for "q8_0" / "q4_0"."""
     if isinstance(dtype, str):
         cls = {"q8_0": KVQ8, "q4_0": KVQ4}.get(dtype)
         if cls is None:
             raise ValueError(f"unknown KV cache type {dtype!r}")
-        return [(cls.zeros(shape, device), cls.zeros(shape, device))
-                for _ in range(cfg.n_layers)]
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.n_layers)]
+        make = lambda shape: cls.zeros(shape, device)
+    else:
+        make = lambda shape: torch.zeros(shape, dtype=dtype, device=device)
+    caches = []
+    for i in range(cfg.n_layers):
+        shape = (batch, max_seq, layer_heads(cfg, i)[1], cfg.head_dim)
+        caches.append((make(shape), make(shape)))
+    return caches

@@ -1,4 +1,5 @@
-"""Core transformer ops: RMSNorm, RoPE (norm/neox, YaRN), attention, SwiGLU.
+"""Core transformer ops: RMS/LayerNorm, RoPE (norm/neox, YaRN), attention
+(softcap, ALiBi, sliding window), SwiGLU.
 
 Counterpart of prima_tpu/ops/layers.py in plain PyTorch. Semantics follow
 the reference kernels (ggml_rope_ext, ggml_rms_norm, ggml_soft_max_ext);
@@ -21,6 +22,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor | None, bias: torch.Tensor | None,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in f32 (ggml_norm + optional mul/add). weight / bias None
+    is the non-parametric form (OLMo)."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def _yarn_ramp(low: float, high: float, dims: torch.Tensor) -> torch.Tensor:
@@ -85,17 +101,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
     return rotate(x.float(), cos, sin, rope_type).to(x.dtype)
 
 
+def alibi_slopes(n_heads: int, max_bias: float) -> torch.Tensor:
+    """Per-head ALiBi slopes (n_heads,) f32, the two-regime formula of
+    ggml_soft_max_ext."""
+    n_log2 = 1 << int(math.floor(math.log2(n_heads)))
+    m0 = 2.0 ** (-max_bias / n_log2)
+    m1 = 2.0 ** (-max_bias / 2.0 / n_log2)
+    h = torch.arange(n_heads, dtype=torch.float64)
+    return torch.where(h < n_log2, m0 ** (h + 1), m1 ** (2 * (h - n_log2) + 1)).float()
+
+
+def alibi_mask(pos_q: torch.Tensor, t: int) -> torch.Tensor:
+    """Causal mask (b, 1, s, t) that carries -|pos_i - j| where visible
+    (the softmax adds slope * mask per head)."""
+    cols = torch.arange(t, device=pos_q.device)[None, None, :]
+    visible = cols <= pos_q[:, :, None]
+    dist = -(pos_q[:, :, None] - cols).abs().float()
+    return torch.where(visible, dist, float("-inf"))[:, None]
+
+
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: torch.Tensor | None, scale: float) -> torch.Tensor:
+                  mask: torch.Tensor | None, scale: float, logit_softcap: float = 0.0,
+                  slopes: torch.Tensor | None = None) -> torch.Tensor:
     """Grouped-query attention with an f32 softmax.
     q (b, s, H, hd), k/v (b, t, KVH, hd), mask (b, 1, s, t) additive.
-    Returns (b, s, H, hd) in q's dtype."""
+    logit_softcap > 0 caps the scores at cap * tanh(s / cap) (gemma2);
+    slopes (H,) scale the mask per head (ALiBi). Returns (b, s, H, hd) in
+    q's dtype."""
     b, s, n_heads, hd = q.shape
     n_kv = k.shape[2]
-    qg = q.reshape(b, s, n_kv, n_heads // n_kv, hd)
+    group = n_heads // n_kv
+    qg = q.reshape(b, s, n_kv, group, hd)
     scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float()) * scale
+    if logit_softcap:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
     if mask is not None:
-        scores = scores + mask[:, None]  # (b,1,1,s,t)
+        m = mask[:, None]  # (b,1,1,s,t)
+        if slopes is not None:
+            m = m * slopes.reshape(1, n_kv, group, 1, 1).to(m.device)
+        scores = scores + m
     probs = torch.softmax(scores, dim=-1)
     # probs in v's dtype, as the JAX package does; half types accumulate
     # in f32 inside the product on either device
@@ -124,12 +168,15 @@ def gated_act(gate: torch.Tensor, up: torch.Tensor, act: str) -> torch.Tensor:
     return swiglu(gate, up)
 
 
-def causal_mask(pos_q: torch.Tensor, t: int,
-                seq_lens: torch.Tensor | None = None) -> torch.Tensor:
+def causal_mask(pos_q: torch.Tensor, t: int, seq_lens: torch.Tensor | None = None,
+                swa_window: int = 0) -> torch.Tensor:
     """Additive causal mask (b, 1, s, t): slot j is visible to a query at
-    absolute position p iff j <= p (and j < seq_lens when given)."""
+    absolute position p iff j <= p (and j < seq_lens when given, and
+    j > p - swa_window for a sliding window, gemma2's KQ_mask_swa)."""
     cols = torch.arange(t, device=pos_q.device)[None, None, :]
     visible = cols <= pos_q[:, :, None]
+    if swa_window:
+        visible &= cols > pos_q[:, :, None] - swa_window
     if seq_lens is not None:
         visible &= cols < seq_lens[:, None, None]
     zero = torch.zeros((), dtype=torch.float32, device=pos_q.device)

@@ -43,6 +43,17 @@
 //    distributed shared memory was tried and was slower: clusters of 8
 //    blocks of ~106 KB each wait for four free SMs of one GPC.)
 //
+// The expert-indexed entry, `prima_qgemv_indexed`, runs the same kernels
+// for mixture-of-experts decode (the counterpart of the JAX package's
+// dynamic slice of the stacked experts before qmatmul_pallas): P (row,
+// expert) pairs, each as B = 1, on a third grid axis. A block reads its
+// pair's expert id from device memory and moves every weight pointer by
+// that many experts (the experts are contiguous row ranges of the stacked
+// arrays), so nothing waits on the host and no expert is copied; x, the
+// output, the split-K scratch and the arrival counters move by the pair,
+// so two pairs on one expert never share a counter. Each pair reads its
+// expert's bytes on its own: pairs on one expert read it twice.
+//
 // nib4 weights (Q4_K, Q4_0, Q4_1: byte i holds col i in its low nibble and
 // col i + K/2 in its high one) go to `qgemv_mma`, on the tensor cores:
 // even one PRMT, one subtract and B FMAs a weight kept the CUDA cores'
@@ -96,6 +107,36 @@ struct Args {
   unsigned int* done;   // one counter per row block, 0 between launches
   int B, N, K, sub_shift, gsub_shift, q_offset, smode, ksb, ksplit;
 };
+
+// The indexed entry's experts: (P,) ids and the bytes between two experts
+// in each array (qs, scales, mins, d, dmin; 0 for an absent one).
+struct Experts {
+  const int* ids;
+  long long stride[5];
+};
+
+// The arguments of this block's (row, expert) pair (blockIdx.z) under the
+// indexed entry, where B = 1 a pair.
+__device__ __forceinline__ Args pair_args(const Args& a0, const Experts& ex) {
+  Args a = a0;
+  const int p = blockIdx.z;
+  const long long e = __ldg(ex.ids + p);
+  auto at = [e](const void* base, long long stride) -> const void* {
+    return base ? static_cast<const unsigned char*>(base) + e * stride : nullptr;
+  };
+  a.x += (size_t)p * a.K;
+  a.out += (size_t)p * a.N;
+  if (a.ksplit > 1) {
+    a.part += (size_t)p * a.ksplit * a.N;
+    a.done += (size_t)p * gridDim.y;
+  }
+  a.qs = static_cast<const uint8_t*>(at(a.qs, ex.stride[0]));
+  a.scales = at(a.scales, ex.stride[1]);
+  a.mins = at(a.mins, ex.stride[2]);
+  a.d = at(a.d, ex.stride[3]);
+  a.dmin = at(a.dmin, ex.stride[4]);
+  return a;
+}
 
 // The raw scale words of one sub-block, loaded a stage ahead of use.
 struct ScaleRaw {
@@ -411,7 +452,7 @@ __device__ __forceinline__ float byte_to_f32(uint32_t v, int i) {
 //   xs    NB x ksb floats: the block's slice of x
 //   xsum  NB x ksb / GRAN floats: sums of x over GRAN columns
 template <int NB, int GRAN>
-__global__ void __launch_bounds__(THREADS, 2) qgemv_fma(const Args a) {
+__device__ __forceinline__ void qgemv_fma_body(const Args& a) {
   constexpr int GPU = UNIT / GRAN;     // groups (sub-blocks) per unit
   constexpr int EPR = UNITS * GPU;     // (scale, bias) entries per row and stage
   static_assert(GRAN == 16 || GRAN == 32, "sub-blocks of 16 or 32");
@@ -595,7 +636,7 @@ __device__ __forceinline__ uint32_t bf16_bits(float x) {
 //         padded by 32 bytes so that 8 columns' reads miss each other's banks
 //   xg    2 halves x ksb / 32 groups x NC floats: the parts' sums over 32 columns
 template <int NT>
-__global__ void __launch_bounds__(THREADS, 2) qgemv_mma(const Args a) {
+__device__ __forceinline__ void qgemv_mma_body(const Args& a) {
   constexpr int NB = 4 * NT, NC = 8 * NT, EPR = 2 * UNITS;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
@@ -773,39 +814,69 @@ __global__ void __launch_bounds__(THREADS, 2) qgemv_mma(const Args a) {
   });
 }
 
-template <typename K>
-int launch_kernel(K kernel, size_t smem, size_t* smem_set, const Args& a,
-                  cudaStream_t stream) {
+// The kernels: the plain entry's, and the indexed entry's, which first move
+// their arguments to the block's pair.
+template <int NB, int GRAN>
+__global__ void __launch_bounds__(THREADS, 2) qgemv_fma(const Args a) {
+  qgemv_fma_body<NB, GRAN>(a);
+}
+template <int NB, int GRAN>
+__global__ void __launch_bounds__(THREADS, 2) qgemv_fma_indexed(const Args a,
+                                                                const Experts ex) {
+  qgemv_fma_body<NB, GRAN>(pair_args(a, ex));
+}
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 2) qgemv_mma(const Args a) {
+  qgemv_mma_body<NT>(a);
+}
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 2) qgemv_mma_indexed(const Args a,
+                                                                const Experts ex) {
+  qgemv_mma_body<NT>(pair_args(a, ex));
+}
+
+// A launch of `kernel` over `pairs` (the indexed entry's; 1 for the plain
+// one), its arguments `a` and `extra`.
+template <typename K, typename... Extra>
+int launch_kernel(K kernel, size_t smem, size_t* smem_set, int pairs, cudaStream_t stream,
+                  const Args& a, const Extra&... extra) {
   if (smem > *smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     *smem_set = smem;
   }
-  const dim3 grid(a.ksplit, (a.N + RB - 1) / RB);  // a row block's slices run together
-  kernel<<<grid, THREADS, smem, stream>>>(a);
+  // a row block's slices run together; the indexed entry's pairs on z
+  const dim3 grid(a.ksplit, (a.N + RB - 1) / RB, pairs);
+  kernel<<<grid, THREADS, smem, stream>>>(a, extra...);
   return (int)cudaGetLastError();
 }
 
 constexpr size_t RING_BYTES = (size_t)STAGES * RB * SB;
 
-template <int NB, int GRAN>
-int launch_fma(const Args& a, cudaStream_t stream) {
+template <int NB, int GRAN, bool IDX = false>
+int launch_fma(const Args& a, cudaStream_t stream, const Experts& ex = {}, int pairs = 1) {
   constexpr int EPR = UNITS * (UNIT / GRAN);
   const size_t smem = RING_BYTES + EPR * RB * sizeof(float2) +
                       RAW_BYTES +
                       (size_t)NB * (a.ksb + a.ksb / GRAN) * sizeof(float);
   static size_t smem_set = 48 * 1024;  // the default limit for dynamic smem
-  return launch_kernel(qgemv_fma<NB, GRAN>, smem, &smem_set, a, stream);
+  if constexpr (IDX)
+    return launch_kernel(qgemv_fma_indexed<NB, GRAN>, smem, &smem_set, pairs, stream, a, ex);
+  else
+    return launch_kernel(qgemv_fma<NB, GRAN>, smem, &smem_set, 1, stream, a);
 }
 
-template <int NT>
-int launch_mma(const Args& a, cudaStream_t stream) {
+template <int NT, bool IDX = false>
+int launch_mma(const Args& a, cudaStream_t stream, const Experts& ex = {}, int pairs = 1) {
   const size_t smem = RING_BYTES + 2 * UNITS * RB * sizeof(float2) +
                       RAW_BYTES + (size_t)2 * 8 * NT * (a.ksb + 16) * sizeof(__nv_bfloat16) +
                       (size_t)2 * (a.ksb / 32) * 8 * NT * sizeof(float);
   static size_t smem_set = 48 * 1024;
-  return launch_kernel(qgemv_mma<NT>, smem, &smem_set, a, stream);
+  if constexpr (IDX)
+    return launch_kernel(qgemv_mma_indexed<NT>, smem, &smem_set, pairs, stream, a, ex);
+  else
+    return launch_kernel(qgemv_mma<NT>, smem, &smem_set, 1, stream, a);
 }
 
 template <int GRAN>
@@ -820,6 +891,19 @@ int log2_exact(int v) {
   int s = 0;
   while ((1 << s) < v) ++s;
   return (1 << s) == v ? s : -1;
+}
+
+// The shapes and slicing both entries take, for B rows of x a launch.
+bool shapes_ok(int B, int K, int layout, int sub, int gsub, int ksb, int ksplit,
+               const float* part, const unsigned int* done) {
+  const int row_bytes = layout == NIB4 ? K / 2 : K;
+  // rows of x a launch stages: nib4 pads to 4 or 8, int8 to a power of two
+  const int nb_pad = B > 4 ? 8 : (layout == NIB4 || B > 2) ? 4 : B;
+  const int x_floats = (layout == NIB4 ? 2 : 1) * nb_pad * ksb;
+  return log2_exact(sub) >= 0 && log2_exact(gsub) >= 0 && (sub == 16 || sub == 32) &&
+         !(layout == NIB4 && sub != 32) && ksb > 0 && ksb % SB == 0 && row_bytes % UNIT == 0 &&
+         ksplit == (row_bytes + ksb - 1) / ksb && (ksplit == 1 || (part && done)) &&
+         x_floats <= X_FLOATS;
 }
 
 }  // namespace
@@ -838,16 +922,8 @@ extern "C" int prima_qgemv(const float* x, const uint8_t* qs, const void* scales
                            int K, int layout,
                            int sub, int gsub, int q_offset, int smode, int ksb,
                            int ksplit, void* stream) {
+  if (!shapes_ok(B, K, layout, sub, gsub, ksb, ksplit, part, done)) return -1;
   const int sub_shift = log2_exact(sub), gsub_shift = log2_exact(gsub);
-  const int row_bytes = layout == NIB4 ? K / 2 : K;
-  // rows of x a launch stages: nib4 pads to 4 or 8, int8 to a power of two
-  const int nb_pad = B > 4 ? 8 : (layout == NIB4 || B > 2) ? 4 : B;
-  const int x_floats = (layout == NIB4 ? 2 : 1) * nb_pad * ksb;
-  if (sub_shift < 0 || gsub_shift < 0 || (sub != 16 && sub != 32) ||
-      (layout == NIB4 && sub != 32) || ksb <= 0 || ksb % SB || row_bytes % UNIT ||
-      ksplit != (row_bytes + ksb - 1) / ksb || (ksplit > 1 && !(part && done)) ||
-      x_floats > X_FLOATS)
-    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int b0 = 0; b0 < B; b0 += MAX_NB) {
     const int nb = B - b0 < MAX_NB ? B - b0 : MAX_NB;
@@ -861,4 +937,29 @@ extern "C" int prima_qgemv(const float* x, const uint8_t* qs, const void* scales
     if (e) return e;
   }
   return 0;
+}
+
+// The expert-indexed GEMV: y (P, N) with y[p] = dequant(W_e)(N, K) . x[p]
+// for e = ids[p], where W is the stacked experts (E * N rows) and
+// estride_* the bytes between two experts in each array (0 for an absent
+// one). ids stays on the device. With ksplit > 1, `part` is f32 scratch
+// (P, ksplit, N) and `done` holds P * ceil(N / 128) counters, 0 before the
+// first launch and after each. Returns as prima_qgemv.
+extern "C" int prima_qgemv_indexed(const float* x, const uint8_t* qs, const void* scales,
+                                   const void* mins, const void* d, const void* dmin,
+                                   float* out, float* part, unsigned int* done,
+                                   const int* ids, int P, int N, int K, int layout, int sub,
+                                   int gsub, int q_offset, int smode, int ksb, int ksplit,
+                                   long long estride_qs, long long estride_scales,
+                                   long long estride_mins, long long estride_d,
+                                   long long estride_dmin, void* stream) {
+  if (P < 1 || P > 65535 || !ids || !shapes_ok(1, K, layout, sub, gsub, ksb, ksplit, part, done))
+    return -1;
+  const Args a{x, qs, scales, mins, d, dmin, out, part, done, 1, N, K, log2_exact(sub),
+               log2_exact(gsub), q_offset, smode, ksb, ksplit};
+  const Experts ex{ids, {estride_qs, estride_scales, estride_mins, estride_d, estride_dmin}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (layout == NIB4) return launch_mma<1, true>(a, st, ex, P);
+  if (sub == 16) return launch_fma<1, 16, true>(a, st, ex, P);
+  return launch_fma<1, 32, true>(a, st, ex, P);
 }

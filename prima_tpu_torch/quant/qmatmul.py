@@ -20,7 +20,11 @@ on the tensor cores: nibbles are exact in bf16, x is split into a bf16
 high and low part (residual <= 2^-17 |x|, inside the 1e-4 tolerance),
 accumulators are f32. int8 weights stay exact in f32 on the CUDA cores,
 where a lane owns two rows and x is read as broadcast float4s. More than
-8 rows run in passes of 8. The JAX package's sigma column permutation,
+8 rows run in passes of 8. `qgemv_indexed` runs the same kernels for
+mixture-of-experts decode: a third grid axis over (row, expert) pairs,
+each block reading its pair's expert id on the device and offsetting its
+weight rows (the counterpart of the JAX package's dynamic slice of the
+stacked experts followed by qmatmul_pallas). The JAX package's sigma column permutation,
 tile repeats, 8-row padding and VMEM knobs have no counterpart: they only
 serve the TPU.
 """
@@ -36,6 +40,7 @@ from .qtensor import QTensor, eff_scales, qmatmul_plain, unpack_q
 
 SOURCE = "quant/cuda/qmatmul.cu"
 launches = nvcc.LaunchCounter("qgemv")
+indexed_launches = nvcc.LaunchCounter("qgemv_indexed")
 MAX_B = 32  # rows at or above this take dequant + one matmul
 _SMODE = {"flat": 0, "grouped": 1, "packed": 2}
 ROW_BLOCK = 128  # output rows per block of qmatmul.cu
@@ -70,6 +75,19 @@ def gemv_split(n: int, row_bytes: int, b: int, layout: str) -> tuple[int, int]:
     ksb = -(-(-(-row_bytes // want)) // STAGE_BYTES) * STAGE_BYTES
     ksb = max(STAGE_BYTES, min(max_ksb, ksb))
     return -(-row_bytes // ksb), ksb
+
+
+def _slices(n: int, row_bytes: int, b: int, layout: str,
+            ksplit: int | None) -> tuple[int, int]:
+    """(ksplit, ksb) of a launch: `gemv_split`'s, or `ksplit` slices where
+    a caller asks for them (fewer than the staging area allows cannot run)."""
+    if ksplit is None:
+        return gemv_split(n, row_bytes, b, layout)
+    ksb = -(-(-(-row_bytes // ksplit)) // STAGE_BYTES) * STAGE_BYTES
+    if not 1 <= ksplit or ksb > gemv_split(1 << 30, row_bytes, b, layout)[1] \
+            or -(-row_bytes // ksb) != ksplit:
+        raise ValueError(f"qgemv: cannot cut {row_bytes} bytes a row into {ksplit}")
+    return ksplit, ksb
 
 
 def qmatmul_factored_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
@@ -137,14 +155,7 @@ def qgemv(x: torch.Tensor, qt: QTensor, ksplit: int | None = None) -> torch.Tens
         return qmatmul_plain(x, qt)
     _check(x, qt)
     b, n, k = x.shape[0], qt.n_rows, qt.n_cols
-    row_bytes = qt.qs.shape[1]
-    n_slices, ksb = gemv_split(n, row_bytes, b, qt.layout)
-    if ksplit is not None:  # fewer slices than the staging area allows cannot run
-        ksb = -(-(-(-row_bytes // ksplit)) // STAGE_BYTES) * STAGE_BYTES
-        if not 1 <= ksplit or ksb > gemv_split(1 << 30, row_bytes, b, qt.layout)[1] \
-                or -(-row_bytes // ksb) != ksplit:
-            raise ValueError(f"qgemv: cannot cut {row_bytes} bytes a row into {ksplit}")
-        n_slices = ksplit
+    n_slices, ksb = _slices(n, qt.qs.shape[1], b, qt.layout, ksplit)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     part = done = None
@@ -159,6 +170,82 @@ def qgemv(x: torch.Tensor, qt: QTensor, ksplit: int | None = None) -> torch.Tens
     nvcc.check(rc, "qgemv launch")
     launches.count += 1
     return out
+
+
+def _lib_indexed():
+    lib = nvcc.load(SOURCE)
+    fn = lib.prima_qgemv_indexed
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                       + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _expert_count(qt: QTensor, n: int) -> int:
+    if n <= 0 or qt.n_rows % n:
+        raise ValueError(f"{qt.n_rows} stacked rows are not whole experts of {n}")
+    return qt.n_rows // n
+
+
+def qgemv_indexed_plain(x: torch.Tensor, qt: QTensor, ids: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """The expert-indexed GEMV in plain PyTorch: row p of x (P, K) through
+    rows [ids[p] n, (ids[p] + 1) n) of the stacked experts `qt`, each
+    expert's slice dequantized once for the pairs that chose it -> (P, n)
+    in x's dtype. Reads the ids on the host."""
+    _expert_count(qt, n)
+    out = torch.empty((x.shape[0], n), dtype=x.dtype, device=x.device)
+    ids_host = ids.cpu()
+    for e in ids_host.unique().tolist():
+        rows = (ids_host == e).nonzero()[:, 0].to(x.device)
+        out[rows] = qmatmul_plain(x[rows], qt.rows(e * n, (e + 1) * n))
+    return out
+
+
+def qgemv_indexed(x: torch.Tensor, qt: QTensor, ids: torch.Tensor, n: int,
+                  ksplit: int | None = None) -> torch.Tensor:
+    """The expert-indexed GEMV: x (P, K) f32, P <= 32 (row, expert) pairs,
+    `qt` the stacked experts of E * n rows, ids (P,) int32 expert ids on
+    the device -> (P, n) f32, row p = dequant(expert ids[p]) @ x[p]. One
+    launch for all pairs; the kernel reads each pair's id and offsets its
+    weight rows, so nothing syncs to the host and no expert is copied. A
+    CPU tensor takes `qgemv_indexed_plain`."""
+    n_exp = _expert_count(qt, n)
+    if x.device.type == "cpu":
+        return qgemv_indexed_plain(x, qt, ids, n)
+    _check(x, qt)
+    p, k = x.shape[0], qt.n_cols
+    if ids.dtype != torch.int32 or ids.shape != (p,) or ids.device != x.device \
+            or not ids.is_contiguous():
+        raise ValueError("qgemv_indexed wants contiguous int32 ids (P,) on x's device")
+    # each pair runs as B = 1; the pairs together fill the card
+    n_slices, ksb = _slices(n * p, qt.qs.shape[1], 1, qt.layout, ksplit)
+    out = torch.empty((p, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part = done = None
+    n_blocks = -(-n // ROW_BLOCK)
+    if n_slices > 1:  # each pair's own scratch and arrival counters
+        part = torch.empty((p, n_slices, n), dtype=torch.float32, device=x.device)
+        done = _done_counters(x.device, stream, p * n_blocks)
+    ptr = lambda a: None if a is None else a.data_ptr()
+    # bytes between two experts in each array (every array holds E * n rows)
+    stride = lambda a: 0 if a is None else a.numel() * a.element_size() // n_exp
+    rc = _lib_indexed()(ptr(x), ptr(qt.qs), ptr(qt.scales), ptr(qt.mins), ptr(qt.d),
+                        ptr(qt.dmin), ptr(out), ptr(part), ptr(done), ptr(ids), p, n, k,
+                        0 if qt.layout == "nib4" else 1, qt.sub, qt.gsub, qt.q_offset,
+                        _SMODE[scale_mode(qt)], ksb, n_slices,
+                        *(stride(a) for a in qt.tensors()), stream)
+    nvcc.check(rc, "qgemv_indexed launch")
+    indexed_launches.count += 1
+    return out
+
+
+def qmatmul_indexed(x: torch.Tensor, qt: QTensor, ids: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """x (P, K) through the experts ids (P,) of stacked `qt` -> (P, n) in
+    x's dtype, through the expert-indexed GEMV."""
+    return qgemv_indexed(x.float().contiguous(), qt, ids, n).to(x.dtype)
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:

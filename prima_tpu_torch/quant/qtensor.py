@@ -77,6 +77,14 @@ class QTensor:
     def tensors(self) -> tuple:
         return (self.qs, self.scales, self.mins, self.d, self.dmin)
 
+    def rows(self, r0: int, r1: int) -> "QTensor":
+        """Rows [r0, r1) as a QTensor of views (one expert of stacked
+        experts)."""
+        sl = lambda a: None if a is None else a[r0:r1]
+        return QTensor(sl(self.qs), sl(self.scales), sl(self.mins), self.sub, self.layout,
+                       self.q_offset, (r1 - r0, self.shape[1]), d=sl(self.d),
+                       dmin=sl(self.dmin), gsub=self.gsub, packed=self.packed)
+
 
 def pack_scales_np(scales, mins, d, dmin, gsub: int):
     """Grouped formats with mins pack to the native footprint (Q4_K 4.5

@@ -28,8 +28,7 @@ import torch
 
 from .. import resolve_device
 from ..models.config import ModelConfig
-from ..models.llama import ForwardOptions, forward, init_kv_caches
-from ..ops.layers import rms_norm
+from ..models.llama import ForwardOptions, forward, init_kv_caches, model_norm
 from ..sampling import Sampler, SamplerParams, softmax
 from .generate import (MAX_TOPK, FusedGenerator, SlotSampleParams,
                        fused_eligible, sample_one, stable_topk)
@@ -484,7 +483,8 @@ class Engine:
                             self._tensor(np.asarray([prompt_tokens]), torch.int64),
                             self._tensor(np.arange(n)[None]), kv,
                             self._tensor([0]), self.opts, return_hidden=True)
-        hidden = rms_norm(hidden, self.params["output_norm"], self.cfg.rms_eps)
+        hidden = model_norm(hidden, self.params.get("output_norm"),
+                            self.params.get("output_norm_b"), self.cfg)
         h = hidden[0].float().cpu().numpy()
         if pooling == "last":
             return h[-1]

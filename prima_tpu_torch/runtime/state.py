@@ -4,7 +4,9 @@ Counterpart of prima_tpu/runtime/state.py for the per-layer cache (the
 port's only layout). A slot's KV rows trimmed to its used length, as f32,
 its token history and the model-shape metadata go into one .npz. The
 format, STATE_MAGIC and STATE_VERSION are the JAX package's, so a file
-saved by either package restores in the other. Quantized caches are saved
+saved by either package restores in the other; a model with per-layer KV
+heads also records them (`n_kv_heads_arr`, which the JAX package does not
+read), and each layer's rows keep that layer's head count. Quantized caches are saved
 as their dense values and requantized on restore, as there.
 """
 
@@ -32,6 +34,8 @@ def _meta(engine, n_tokens: int) -> dict:
         "n_kv_heads": cfg.n_kv_heads,
         "head_dim": cfg.head_dim,
         "n_tokens": n_tokens,
+        # per-layer KV heads (openelm); n_kv_heads is then their largest
+        **({"n_kv_heads_arr": list(cfg.n_kv_heads_arr)} if cfg.n_kv_heads_arr else {}),
     }
 
 
@@ -64,6 +68,10 @@ def slot_restore(engine, slot_id: int, path: str) -> int:
             want = getattr(engine.cfg, key)
             if meta.get(key) != want:
                 raise ValueError(f"{path}: state {key}={meta.get(key)} != model {want}")
+        want = list(engine.cfg.n_kv_heads_arr)
+        if want and meta.get("n_kv_heads_arr", want) != want:
+            raise ValueError(f"{path}: state n_kv_heads_arr={meta['n_kv_heads_arr']} "
+                             f"!= model {want}")
         used = int(meta["n_tokens"])
         if used > engine.max_seq:
             raise ValueError(f"{path}: state length {used} > max_seq {engine.max_seq}")

@@ -475,7 +475,8 @@ def _usage(req: GenerationRequest) -> dict:
 
 def kernel_launches() -> dict[str, int]:
     """Launch counts of the port's CUDA kernels (0 on the CPU)."""
-    return {c.name: c.count for c in (qmatmul.launches, kv_write.launches,
+    return {c.name: c.count for c in (qmatmul.launches, qmatmul.indexed_launches,
+                                      kv_write.launches,
                                       kv_write.store_launches,
                                       attention.decode_launches,
                                       attention.prefill_launches)}

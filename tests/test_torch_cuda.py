@@ -127,6 +127,97 @@ def test_qgemv_rejects_what_it_cannot_take(dev):
         qm.qgemv(torch.randn(512, 4, device=dev).t(), qt)
 
 
+IDS = {"top2": [2, 0], "8 pairs, repeats": [1, 1, 3, 0, 2, 2, 0, 3], "one expert": [3] * 5,
+       "31 pairs": [(7 * i + 3) % 4 for i in range(31)]}
+
+
+@pytest.mark.parametrize("ids", list(IDS.values()), ids=list(IDS))
+@pytest.mark.parametrize("n", [48, 259])  # 259: a ragged row count
+@pytest.mark.parametrize("t,k,mode", FORMATS, ids=lambda v: getattr(v, "name", str(v)))
+def test_qgemv_indexed_matches_plain(dev, t, k, mode, n, ids):
+    """Row p through expert ids[p] of 4 stacked experts, one launch."""
+    qt = _weights(dev, t, 4 * n, k, seed=len(ids))
+    x = torch.randn(len(ids), k, device=dev)
+    idt = torch.tensor(ids, dtype=torch.int32, device=dev)
+    before = qm.indexed_launches.count
+    y = qm.qgemv_indexed(x, qt, idt, n)
+    ref = qm.qgemv_indexed_plain(x, qt, idt, n)
+    torch.cuda.synchronize()
+    assert qm.indexed_launches.count == before + 1
+    assert (y - ref).abs().max().item() <= GEMV_TOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("t,n,k,ksplits", [
+    (GGMLType.Q4_K, 300, 4096, (None, 2, 4, 16)),
+    (GGMLType.Q6_K, 130, 2048, (None, 4, 16)),
+    (GGMLType.Q8_0, 256, 4096, (None, 8, 32)),
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_qgemv_indexed_split_k_repeats(dev, t, n, k, ksplits):
+    """Split K with pairs on one expert: each pair has its own scratch and
+    arrival counters, so every cut gives the plain answer, the same bits on
+    every run, and the counters are back at 0 after each launch."""
+    qt = _weights(dev, t, 3 * n, k, seed=5)
+    ids = torch.tensor([2, 2, 0, 2, 1, 0, 2, 2], dtype=torch.int32, device=dev)
+    x = torch.randn(len(ids), k, device=dev)
+    ref = qm.qgemv_indexed_plain(x, qt, ids, n)
+    for ksplit in ksplits:
+        try:
+            y = qm.qgemv_indexed(x, qt, ids, n, ksplit=ksplit)
+        except ValueError:  # fewer slices than the staged slice of x allows
+            assert ksplit is not None
+            continue
+        again = [qm.qgemv_indexed(x, qt, ids, n, ksplit=ksplit) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert (y - ref).abs().max().item() <= GEMV_TOL * ref.abs().max().item()
+        assert all(torch.equal(y, a) for a in again)
+    assert all(int(c.count_nonzero()) == 0 for c in qm._done.values())
+
+
+def test_qgemv_indexed_rejects_what_it_cannot_take(dev):
+    qt = _weights(dev, GGMLType.Q8_0, 4 * 64, 512)
+    x = torch.randn(2, 512, device=dev)
+    with pytest.raises(ValueError):  # ids on the host
+        qm.qgemv_indexed(x, qt, torch.zeros(2, dtype=torch.int32), 64)
+    with pytest.raises(ValueError):  # int64 ids
+        qm.qgemv_indexed(x, qt, torch.zeros(2, dtype=torch.int64, device=dev), 64)
+    with pytest.raises(ValueError):  # not whole experts
+        qm.qgemv_indexed(x, qt, torch.zeros(2, dtype=torch.int32, device=dev), 60)
+
+
+def test_moe_decode_launches_the_indexed_gemv(dev):
+    """A tiny Mixtral-shaped model on the card: a decode step of 4 rows
+    (8 pairs) launches the indexed GEMV for gate, up and down of every
+    layer, and its logits agree with the plain path's."""
+    from prima_tpu_torch.models import llama as L
+    from prima_tpu_torch.models.config import tiny_config
+
+    cfg = tiny_config(n_embd=256, n_heads=4, n_kv_heads=2, head_dim=64, rope_dim=64,
+                      n_ff=256, n_expert=4, n_expert_used=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = L.synth_params_device(cfg, GGMLType.Q4_K, seed=0, device=dev)
+    for layer in params["layers"]:
+        for key in ("w_gate", "w_up", "w_down"):
+            del layer[key]
+        layer["ffn_gate_inp"] = torch.randn(4, 256, generator=gen, device=dev) * 0.5
+        for key, rows, k in (("ffn_gate_exps", 4 * 256, 256), ("ffn_up_exps", 4 * 256, 256),
+                             ("ffn_down_exps", 4 * 256, 256)):
+            layer[key] = synth_qtensor_device(gen, rows, k, GGMLType.Q4_K, dev)
+    toks = torch.randint(0, cfg.n_vocab, (4, 1), generator=gen, device=dev)
+    logits = {}
+    for impl in ("kernel", "plain"):
+        kv = L.init_kv_caches(cfg, 4, 16, torch.float32, dev)
+        before = qm.indexed_launches.count
+        logits[impl], _ = L.forward(params, cfg, toks, torch.zeros((4, 1), dtype=torch.int32,
+                                                                   device=dev),
+                                    kv, torch.zeros(4, dtype=torch.int32, device=dev),
+                                    L.ForwardOptions(matmul_impl=impl, dtype=torch.float32))
+        launched = qm.indexed_launches.count - before
+        assert launched == (3 * cfg.n_layers if impl == "kernel" else 0)
+    err = (logits["kernel"] - logits["plain"]).abs().max().item()
+    assert err <= 1e-3 * logits["plain"].abs().max().item()
+
+
 KV_CASES = [(4, 1, 2048, 1024, [5, 700, 2047, 1300]), (1, 128, 2048, 1024, [256]),
             (4, 8, 64, 1024, [60, 0, 3000, 17]), (4, 1, 512, 256, [0, 1, 2, 511]),
             (4, 1, 512, 128, [3, 9, 27, 81]), (2, 3, 16, 24, [1, 14]),

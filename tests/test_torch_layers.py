@@ -65,6 +65,30 @@ def test_apply_rope(rope_type, rope_dim):
     _close(got, want, atol=4 * ATOL)  # |x| up to ~4: a few ulps of cos/sin
 
 
+@pytest.mark.parametrize("weight,bias", [(True, True), (True, False), (False, False)])
+def test_layer_norm(weight, bias):
+    """LayerNorm, parametric or not (OLMo's norm has neither weight nor bias)."""
+    x = (rng.standard_normal((2, 3, 64)) * 3 + 1).astype(np.float32)
+    w = rng.standard_normal(64).astype(np.float32) if weight else None
+    b = rng.standard_normal(64).astype(np.float32) if bias else None
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    _close(P.layer_norm(torch.from_numpy(x), t(w), t(b), 1e-5),
+           J.layer_norm(jnp.asarray(x), j(w), j(b), 1e-5), atol=4 * ATOL)
+
+
+@pytest.mark.parametrize("n_heads", [4, 6, 12])  # 6, 12: the second slope regime
+def test_alibi_slopes(n_heads):
+    np.testing.assert_array_equal(P.alibi_slopes(n_heads, 8.0).numpy(),
+                                  J.alibi_slopes(n_heads, 8.0))
+
+
+def test_alibi_mask():
+    pos = np.array([[3, 4, 5], [0, 1, 9]], np.int32)
+    np.testing.assert_array_equal(P.alibi_mask(torch.from_numpy(pos), 12).numpy(),
+                                  np.asarray(J.alibi_mask(jnp.asarray(pos), 12)))
+
+
 @pytest.mark.parametrize("with_lens", [False, True])
 def test_causal_mask(with_lens):
     pos = np.array([[3, 4, 5], [0, 1, 9]], np.int32)
@@ -73,6 +97,37 @@ def test_causal_mask(with_lens):
                         None if lens is None else torch.from_numpy(lens))
     want = J.causal_mask(jnp.asarray(pos), 12, None if lens is None else jnp.asarray(lens))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("with_lens,swa", [(False, 3), (True, 4)])
+def test_sliding_window_mask(with_lens, swa):
+    """gemma2's KQ_mask_swa: slots older than the window are hidden too."""
+    pos = np.array([[3, 4, 5], [0, 1, 9]], np.int32)
+    lens = np.array([5, 8], np.int32) if with_lens else None
+    got = P.causal_mask(torch.from_numpy(pos), 12,
+                        None if lens is None else torch.from_numpy(lens), swa_window=swa)
+    want = J.causal_mask(jnp.asarray(pos), 12, None if lens is None else jnp.asarray(lens),
+                         swa_window=swa)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("softcap,alibi", [(0.5, False), (0.0, True), (30.0, True)])
+def test_gqa_attention_softcap_and_alibi(softcap, alibi):
+    """gemma2's softcapped scores; ALiBi's per-head slopes over the
+    distance mask."""
+    b, s, t, n_heads, n_kv, hd = 2, 3, 10, 8, 2, 16
+    q = rng.standard_normal((b, s, n_heads, hd)).astype(np.float32)
+    k = rng.standard_normal((b, t, n_kv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, t, n_kv, hd)).astype(np.float32)
+    pos = np.array([[6, 7, 8], [2, 3, 4]], np.int32)
+    mask = (J.alibi_mask if alibi else J.causal_mask)(jnp.asarray(pos), t)
+    slopes = J.alibi_slopes(n_heads, 8.0) if alibi else None
+    got = P.gqa_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          torch.from_numpy(np.array(mask)), 0.25, softcap,
+                          None if slopes is None else torch.from_numpy(slopes))
+    want = J.gqa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask, 0.25,
+                           softcap, None if slopes is None else jnp.asarray(slopes))
+    _close(got, want, atol=2 * ATOL)
 
 
 @pytest.mark.parametrize("n_heads,n_kv,s", [(4, 2, 3), (8, 8, 1), (8, 1, 4)])

@@ -140,16 +140,17 @@ def test_fused_weights_same_logits(models):
                                _port_logits(m.params, m.cfg, toks), rtol=0, atol=1e-5)
 
 
-def test_unported_arch_flags_raise(models):
+@pytest.mark.parametrize("extra", [{"cvec": np.zeros(1, np.float32)},
+                                   {"wq_lora": np.zeros(1, np.float32)}],
+                         ids=["cvec", "lora"])
+def test_adapter_layers_raise(models, extra):
+    """Control vectors and LoRA adapters are not ported yet: a layer that
+    carries one raises instead of being ignored."""
     _, _, _, m = models
-    import dataclasses
-
-    toks = _tokens(m.cfg, 1, 3, seed=5)
-    for flag, value in (("n_expert", 4), ("attn_logit_softcap", 30.0),
-                        ("swa_window", 16), ("parallel_block", True)):
-        cfg = dataclasses.replace(m.cfg, **{flag: value})
-        with pytest.raises(NotImplementedError):
-            _port_logits(m.params, cfg, toks)
+    layers = [dict(layer) for layer in m.params["layers"]]
+    layers[-1].update({k: torch.from_numpy(v) for k, v in extra.items()})
+    with pytest.raises(NotImplementedError):
+        _port_logits(dict(m.params, layers=layers), m.cfg, _tokens(m.cfg, 1, 3, seed=5))
 
 
 def test_default_device_is_cuda():

@@ -121,7 +121,7 @@ def test_port_endpoints(servers):
     st, data = _req(port, "GET", "/props")
     props = json.loads(data)
     assert st == 200 and set(props["kernel_launches"]) == {
-        "qgemv", "kv_write", "kv_store", "flash_decode", "flash_prefill"}
+        "qgemv", "qgemv_indexed", "kv_write", "kv_store", "flash_decode", "flash_prefill"}
     st, data = _req(port, "GET", "/metrics")
     assert st == 200 and b"prima:kernel_launches_total" in data
     st, _ = _req(port, "POST", "/completion", dict(GREEDY, prompt="x", grammar="root ::= \"a\""))
