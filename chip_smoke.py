@@ -11,8 +11,10 @@ Phases, each of which fails the run on any error or mismatch:
                its bound and the library call that computes the same
                function, where there is one: the GEMV at B = 1, 4, 8, 31 and
                at the narrow split-K shapes (N = 1024, N = 256); the
-               expert-indexed GEMV at Mixtral-8x7B's expert shapes (2 and 8
-               pairs, repeated and out-of-order ids, Q4_K and Q6_K); the KV
+               expert-indexed GEMV at Mixtral-8x7B's expert shapes (2 to 30
+               pairs on 2 to 8 distinct experts, Q4_K, Q6_K and Q8_0) and at
+               Qwen1.5-MoE-A2.7B's gate/up (60 experts, top-4), with equal
+               bits over four runs and for a pair alone; the KV
                write at the shapes of the server's slot restore (int8 codes
                and f32 scales into a one-slot view) and at 8B rows (exact
                bits); the fused KV store of a layer over dense, q8_0 and
@@ -50,12 +52,16 @@ Phases, each of which fails the run on any error or mismatch:
                position 4000 over f32 caches and over seeded q8_0 caches,
                every kernel against every plain version.
   6. moe     — Mixtral-8x7B at full width and depth (8 experts, top-2),
-               Q4_K weights generated on the card after the 8B weights are
-               freed: Engine(n_slots=4, max_seq=4096, attn_impl="kernel")
-               serves 4 requests of 480-512 prompt tokens and 32 greedy
-               tokens; the launch counts of every kernel in that run (the
-               indexed GEMV's are the kernels line's); a decode chunk
-               profiled; one decode step's logits, every kernel vs plain.
+               centred Q4_K weights generated on the card after the 8B
+               weights are freed: Engine(n_slots=4, max_seq=4096,
+               attn_impl="kernel") serves 4 requests of 480-512 prompt
+               tokens and 32 greedy tokens; the launch counts of every
+               kernel in that run (the indexed GEMV's are the kernels
+               line's) and the distinct experts its indexed launches read;
+               a decode chunk profiled, beside the bound of its indexed
+               launches at those ids; one decode step's logits, every
+               kernel vs plain. The served decode and the logits check
+               must each reach more than 2 distinct experts a launch.
 The decoder writes K and V through the fused KV store; the byte-generic KV
 write runs where a saved slot is restored, so its launches are the server's
 (phase 3). The device-memory probe is on no serving path: its launches are
@@ -328,32 +334,53 @@ def phase_kernels(dev, report: dict) -> None:
 
 
 def indexed_cases():
-    """(format, label, N, K, ids) at Mixtral-8x7B's expert shapes, 8
-    experts: top-2 of one row (B = 1) and of four rows (B = 4, 8 pairs),
-    with repeated and out-of-order ids."""
+    """(format, label, N, K, experts, ids, per_expert) at Mixtral-8x7B's
+    expert shapes (8 experts) unless labelled otherwise: top-2 of one row
+    (B = 1) and of four rows (B = 4, 8 pairs, repeated and out-of-order
+    ids); four rows all on experts {0, 1} (8 pairs, 2 distinct) beside 2
+    pairs on those two; 8 rows of top-2, once at random and once with every
+    row on one expert (two passes of 4 columns); 15 rows of top-2 with 10
+    or more pairs on one expert (three passes or four); Qwen1.5-MoE-A2.7B's
+    gate/up (60 experts, top-4, B = 4: most slots empty); Q6_K and Q8_0 on
+    the CUDA cores. `per_expert` is what moe_ffn passes: the row count."""
+    import random
+
     from prima_tpu_torch.gguf.constants import GGMLType as T
 
+    rng = random.Random(6)
     b1, b4 = [5, 2], [3, 1, 1, 6, 7, 3, 0, 2]
-    return [(T.Q4_K, "gate/up", MIXTRAL["n_ff"], MIXTRAL["n_embd"], b1),
-            (T.Q4_K, "gate/up", MIXTRAL["n_ff"], MIXTRAL["n_embd"], b4),
-            (T.Q4_K, "down", MIXTRAL["n_embd"], MIXTRAL["n_ff"], b1),
-            (T.Q4_K, "down", MIXTRAL["n_embd"], MIXTRAL["n_ff"], b4),
-            (T.Q6_K, "down", MIXTRAL["n_embd"], MIXTRAL["n_ff"], b4)]
+    two = [0, 1, 1, 0, 0, 1, 1, 0]
+    rows8 = [e for _ in range(8) for e in rng.sample(range(8), 2)]
+    heavy8 = [e for _ in range(8) for e in (3, rng.choice([0, 1, 2, 4, 5, 6, 7]))]
+    rows15 = [e for r in range(15) for e in (
+        [3, rng.choice([0, 1, 2, 4, 5, 6, 7])] if r < 10 else rng.sample(range(8), 2))]
+    qwen = [e for _ in range(4) for e in rng.sample(range(60), 4)]
+    f, e = MIXTRAL["n_ff"], MIXTRAL["n_embd"]
+    return [(T.Q4_K, "gate/up", f, e, 8, b1, 1), (T.Q4_K, "gate/up", f, e, 8, b4, 4),
+            (T.Q4_K, "down", e, f, 8, b1, 1), (T.Q4_K, "down", e, f, 8, b4, 4),
+            (T.Q6_K, "down", e, f, 8, b4, 4), (T.Q4_K, "gate/up", f, e, 8, [0, 1], 1),
+            (T.Q4_K, "gate/up", f, e, 8, two, 4), (T.Q4_K, "gate/up", f, e, 8, rows8, 8),
+            (T.Q4_K, "gate/up", f, e, 8, heavy8, 8),
+            (T.Q4_K, "gate/up", f, e, 8, rows15, 15),
+            (T.Q4_K, "qwen1.5-moe gate/up", 1408, 2048, 60, qwen, 4),
+            (T.Q6_K, "down", e, f, 8, two, 4), (T.Q8_0, "gate/up", f, e, 8, b4, 4)]
 
 
 def phase_indexed_gemv(dev, report: dict, gen) -> None:
     """The expert-indexed GEMV against its plain version (qmatmul_plain of
-    each pair's expert slice) on stacked experts of Mixtral's shapes. Its
-    bound reads each distinct expert's bytes once (pairs on one expert
-    need its bytes once; the kernel reads them once a pair)."""
+    each expert's slice for its pairs) on stacked experts. Each case also
+    gives equal bits over four runs, leaves every arrival counter at 0, and
+    gives a pair that shares its expert the bits it gets alone under the
+    same K cut (alone, an int8 pair takes the 1-column template: a column's
+    sums are its own). Its bound reads each distinct expert's bytes once, as
+    the kernel does."""
     import torch
 
     from prima_tpu_torch.models.llama import synth_qtensor_device
     from prima_tpu_torch.quant import qmatmul as qm
 
-    n_exp = MIXTRAL["n_expert"]
     out_cases = []
-    for t, label, n, k, ids in indexed_cases():
+    for t, label, n, k, n_exp, ids, per_expert in indexed_cases():
         qts = [synth_qtensor_device(gen, n_exp * n, k, t, dev)]
         slice_bytes = qts[0].nbytes // n_exp
         qts += [synth_qtensor_device(gen, n_exp * n, k, t, dev)
@@ -361,33 +388,53 @@ def phase_indexed_gemv(dev, report: dict, gen) -> None:
         qt, p = qts[0], len(ids)
         idt = torch.tensor(ids, dtype=torch.int32, device=dev)
         x = torch.randn((p, k), generator=gen, device=dev)
-        y = qm.qgemv_indexed(x, qt, idt, n)
+
+        def run(x_, q, i_):
+            return qm.qgemv_indexed(x_, q, i_, n, per_expert=per_expert)
+
+        y = run(x, qt, idt)
+        again = [run(x, qt, idt) for _ in range(3)]
         ref = qm.qgemv_indexed_plain(x, qt, idt, n)
+        slots, cols, passes, ksplit, ksb = qm.indexed_launch(
+            n, qt.qs.shape[1], p, n_exp, per_expert, qt.layout)
+        # a pair whose expert others share, alone under the same K cut
+        shared = next((i for i, e in enumerate(ids) if ids.count(e) > 1), 0)
+        alone = qm.qgemv_indexed(x[shared:shared + 1], qt, idt[shared:shared + 1], n,
+                                 ksplit=ksplit)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         scale = ref.abs().max().item()
-        ms = time_ms(qm.qgemv_indexed, [(x, q, idt, n) for q in qts])
+        same_bits = all(torch.equal(y, a) for a in again)
+        alone_bits = torch.equal(alone[0], y[shared])
+        counters_zero = all(int(c.count_nonzero()) == 0 for c in qm._done.values())
+        ms = time_ms(run, [(x, q, idt) for q in qts])
         plain = time_ms(qm.qgemv_indexed_plain, [(x, q, idt, n) for q in qts[:2]],
                         reps=5, per_rep=2)
         nbytes = len(set(ids)) * slice_bytes + p * k * 4 + p * n * 4
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = 2.0 * p * n * k / F32_FLOPS
-        ksplit, ksb = qm.gemv_split(n * p, qt.qs.shape[1], 1, qt.layout)
         case = {"format": t.name, "shape": label, "N": n, "K": k, "P": p, "ids": ids,
-                "experts": n_exp, "scales": qm.scale_mode(qt), "ksplit": ksplit,
-                "slice_bytes": ksb, "max_abs_err": err, "max_abs_ref": scale, "ms": ms,
-                "plain_ms": plain, "library_ms": None,
+                "experts": n_exp, "distinct": len(set(ids)), "per_expert": per_expert,
+                "scales": qm.scale_mode(qt), "slots": slots, "cols": cols, "passes": passes,
+                "ksplit": ksplit, "slice_bytes": ksb, "max_abs_err": err,
+                "max_abs_ref": scale, "equal_bits_4_runs": same_bits,
+                "alone_equal_bits": alone_bits, "counters_zero": counters_zero,
+                "ms": ms, "plain_ms": plain, "library_ms": None,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
                 "pair_bytes": p * slice_bytes}
         out_cases.append(case)
-        log(f"qgemv_indexed {t.name:5s} {label:8s} P={p} ids {ids} ksplit {ksplit} "
-            f"err {err:.2e}/{scale:.2e} ms {ms:.4f} plain {plain:.4f} "
-            f"bound {case['bound_ms']:.4f} ({len(set(ids))} experts, "
-            f"{nbytes / 1e6:.1f} MB)")
+        log(f"qgemv_indexed {t.name:5s} {label:19s} P={p:<2d} {len(set(ids))} experts "
+            f"cols {cols} passes {passes} ksplit {ksplit} err {err:.2e}/{scale:.2e} "
+            f"ms {ms:.4f} plain {plain:.4f} bound {case['bound_ms']:.4f} "
+            f"({nbytes / 1e6:.1f} MB)")
         if not err <= GEMV_TOL * scale:
             raise AssertionError(f"qgemv_indexed {t.name} {label} P={p}: max |err| {err} "
                                  f"> {GEMV_TOL} * {scale}")
+        if not (same_bits and alone_bits and counters_zero):
+            raise AssertionError(f"qgemv_indexed {t.name} {label} P={p}: equal bits over "
+                                 f"4 runs {same_bits}, alone {alone_bits}, counters at 0 "
+                                 f"{counters_zero}")
         del qts
         torch.cuda.empty_cache()
     r = report["qgemv_indexed"]
@@ -396,13 +443,19 @@ def phase_indexed_gemv(dev, report: dict, gen) -> None:
     r["tolerance"] = f"max|err| <= {GEMV_TOL} * max|plain| (f32)"
     # one Mixtral decode step at B = 4 (8 pairs a launch): gate and up, then
     # down, in each of 32 layers
-    step = {c["shape"]: c for c in out_cases if c["format"] == "Q4_K" and c["P"] == 8}
+    mix = [c for c in out_cases if c["format"] == "Q4_K" and c["experts"] == 8]
+    step = {c["shape"]: c for c in mix if c["ids"] == [3, 1, 1, 6, 7, 3, 0, 2]}
     for key in ("ms", "plain_ms", "bound_ms"):
         r[key] = MIXTRAL["n_layers"] * (2 * step["gate/up"][key] + step["down"][key])
     r["bound_by"] = "bytes"
     r["library_ms"] = None
     r["headline"] = ("sum over the 96 indexed launches of one Mixtral-8x7B Q4_K decode "
                      "step at B = 4 (8 pairs each, ids " + str(step["down"]["ids"]) + ")")
+    # each chosen expert read once: 8 pairs on 2 experts against 2 pairs on them
+    by_ids = {str(c["ids"]): c["ms"] for c in mix if c["shape"] == "gate/up"}
+    r["read_once_ratio"] = by_ids[str([0, 1, 1, 0, 0, 1, 1, 0])] / by_ids[str([0, 1])]
+    log(f"qgemv_indexed Mixtral B = 4 step {r['ms']:.3f} ms (bound {r['bound_ms']:.3f}); "
+        f"8 pairs on 2 experts / 2 pairs on them: {r['read_once_ratio']:.3f}")
 
 
 def phase_kv_store(dev, report: dict, gen) -> None:
@@ -1266,11 +1319,11 @@ def phase_full(dev, report: dict, cfg, params) -> dict:
     return launches
 
 
-def serve_long(eng, prompts, n_predict: int, counters: dict, dev) -> dict:
+def serve_long(eng, prompts, n_predict: int, counters: dict, dev, on_start=None) -> dict:
     """4 long prompts through submit + step_fused (the loop
     EngineWorker._loop runs), the kernels' counts set to 0 just before and
-    read just after. Every forward call launches one KV store and one flash
-    kernel a layer."""
+    read just after (`on_start` runs there too). Every forward call
+    launches one KV store and one flash kernel a layer."""
     import torch
 
     from prima_tpu_torch.runtime.engine import SlotState
@@ -1281,6 +1334,8 @@ def serve_long(eng, prompts, n_predict: int, counters: dict, dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters.values():
         c.count = 0
+    if on_start is not None:
+        on_start()
     live, done = [eng.submit(p, n_predict=n_predict) for p in prompts], []
     t0 = time.time()
     while live:
@@ -1403,7 +1458,10 @@ def phase_long(dev, report: dict, cfg, params) -> dict:
 def weights_mixtral(dev):
     """Mixtral-8x7B at full width and depth, Q4_K weights generated on the
     card: the stacked experts of each layer as one QTensor of 8 * N rows a
-    projection (the layout the loader gives), the router in f32."""
+    projection (the layout the loader gives), the router in f32. The
+    weights are centred: with the synth's default mean every hidden state
+    shares one direction, and the random router sent every row to the same
+    2 experts at every layer."""
     import torch
 
     from prima_tpu_torch.gguf.constants import GGMLType
@@ -1416,7 +1474,8 @@ def weights_mixtral(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     t0 = time.time()
-    q = lambda rows, k: synth_qtensor_device(gen, rows, k, GGMLType.Q4_K, dev)
+    q = lambda rows, k: synth_qtensor_device(gen, rows, k, GGMLType.Q4_K, dev,
+                                             zero_mean=True)
     ones = lambda: torch.ones(e, dtype=torch.float32, device=dev)
     params = {"tok_embd": q(cfg.n_vocab, e), "output": q(cfg.n_vocab, e),
               "output_norm": ones(), "layers": []}
@@ -1434,12 +1493,35 @@ def weights_mixtral(dev):
     return cfg, params
 
 
+def expert_use(seen: list, params: dict, cfg) -> dict:
+    """Distinct experts a layer's indexed launches read in a run, by pair
+    count (8 = the 4-slot decode), and what one decode step's 3 x layers
+    launches would take at 3.35 TB/s reading each distinct expert once."""
+    import torch
+
+    layer = params["layers"][0]
+    slice_bytes = sum(layer[k].nbytes for k in ("ffn_gate_exps", "ffn_up_exps",
+                                                "ffn_down_exps")) / cfg.n_expert
+    by: dict = {}
+    for ids in seen:
+        by.setdefault(ids.numel(), []).append(torch.unique(ids).numel())
+    out = {"layer_launches": len(seen), "by_pairs": {}}
+    for p, d in sorted(by.items()):
+        mean = statistics.fmean(d)
+        out["by_pairs"][str(p)] = {
+            "layer_launches": len(d), "mean_distinct": mean,
+            "bound_ms_per_step": cfg.n_layers * mean * slice_bytes / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
 def phase_moe(dev, report: dict) -> dict:
     """Mixtral-8x7B at full width: Engine(n_slots=4, max_seq=4096,
     attn_impl="kernel") serves 4 requests of 480-512 seeded prompt tokens
     and 32 greedy tokens; the launch counts of every kernel in that run; a
     decode chunk profiled; one decode step's logits near position 400 over
-    seeded f32 caches, every kernel against every plain version."""
+    seeded f32 caches, every kernel against every plain version. Both the
+    served decode and the logits check must reach more than 2 distinct
+    experts a launch of 8 pairs on average."""
     import numpy as np
     import torch
 
@@ -1458,11 +1540,29 @@ def phase_moe(dev, report: dict) -> dict:
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.n_vocab, int(n)).tolist()
                for n in rng.integers(480, 513, 4)]
-    moe = serve_long(eng, prompts, 32, counters, dev)
+    # the ids of every indexed launch of the serving run and of the logits
+    # check (gate, up and down of a layer share one tensor), kept without a
+    # copy and read afterwards
+    seen, real = [], qm.qgemv_indexed
+
+    def spy(x, qt, ids, n, **kw):
+        if not seen or seen[-1] is not ids:
+            seen.append(ids)
+        return real(x, qt, ids, n, **kw)
+
+    qm.qgemv_indexed = spy
+    try:
+        moe = serve_long(eng, prompts, 32, counters, dev, on_start=seen.clear)
+    finally:
+        qm.qgemv_indexed = real
+    moe["indexed_ids"] = expert_use(seen, params, cfg)
     log("Mixtral-8x7B engine", json.dumps(moe))
     if not moe["launches"]["qgemv_indexed"]:
         raise AssertionError("the Mixtral decode ran without the indexed GEMV")
     moe["profile"] = profile_decode(eng, prompts)
+    use = moe["indexed_ids"]["by_pairs"].get("8")
+    if use:  # the chunk's 8 steps at B = 4, each distinct expert read once a launch
+        moe["profile"]["indexed_bound_ms"] = 8 * use["bound_ms_per_step"]
     log("Mixtral decode chunk profile", json.dumps(moe["profile"]))
     if not moe["profile"]["device_ms"]["qgemv_indexed"] > 0:
         raise AssertionError("the profiled Mixtral decode chunk shows no indexed GEMV time")
@@ -1481,12 +1581,24 @@ def phase_moe(dev, report: dict) -> dict:
         for c in pair:
             c.copy_(torch.randn(c.shape, generator=gen, device=dev))
     logits = {}
-    for impl in ("kernel", "plain"):
-        with torch.no_grad():
-            logits[impl], _ = forward(
-                params, cfg, toks, pos[:, None], kv, pos,
-                ForwardOptions(matmul_impl=impl, attn_impl=impl, dtype=torch.float32))
+    seen.clear()
+    qm.qgemv_indexed = spy
+    try:
+        for impl in ("kernel", "plain"):
+            with torch.no_grad():
+                logits[impl], _ = forward(
+                    params, cfg, toks, pos[:, None], kv, pos,
+                    ForwardOptions(matmul_impl=impl, attn_impl=impl, dtype=torch.float32))
+    finally:
+        qm.qgemv_indexed = real
+    moe["logits_ids"] = expert_use(seen, params, cfg)
+    log("Mixtral logits check's indexed launches", json.dumps(moe["logits_ids"]))
     check_logits(moe, logits, "Mixtral decode step")
+    for key, what in (("indexed_ids", "served decode"), ("logits_ids", "logits check")):
+        mean = moe[key]["by_pairs"].get("8", {}).get("mean_distinct", 0.0)
+        if not mean > 2:  # then every launch ran groups of 4 on 2 experts
+            raise AssertionError(f"the Mixtral {what} reached {mean} distinct experts a "
+                                 "launch of 8 pairs, not more than 2")
     del kv, logits, params
     gc.collect()
     torch.cuda.empty_cache()

@@ -312,9 +312,15 @@ def _natural_uq(f: dict) -> UQTensor:
 
 
 def synth_qtensor_device(gen: torch.Generator, rows: int, k: int,
-                         t: GGMLType = GGMLType.Q4_K, device=None) -> QTensor:
+                         t: GGMLType = GGMLType.Q4_K, device=None,
+                         zero_mean: bool = False) -> QTensor:
     """Random QTensor generated on the device from `gen` (no host copy),
-    with the byte layout of real weights of the same format."""
+    with the byte layout of real weights of the same format. The weights of
+    a format with mins average a quarter to a half of qmax scales above 0,
+    so every output of a product shares one common mode; `zero_mean` puts
+    each sub-block's min at half its scale's range (w = scale (q - qmax /
+    2)), centred as trained weights are. It draws the same numbers from
+    `gen` either way."""
     table = {  # type -> (sub, layout, q_offset, qmax, has_mins, gsub)
         GGMLType.Q4_K: (32, "nib4", 0, 15, True, 8),
         GGMLType.Q4_0: (32, "nib4", -8, 8, False, 1),
@@ -339,6 +345,8 @@ def synth_qtensor_device(gen: torch.Generator, rows: int, k: int,
         scales = torch.rand((rows, s), generator=gen, device=device) * (0.02 / qmax) + 1e-4
         mins = (scales * torch.rand((rows, s), generator=gen, device=device) * (qmax / 2)
                 if has_mins else None)
+        if has_mins and zero_mean:
+            mins = scales * (qmax / 2)
         return QTensor(qs, scales, mins, sub, layout, off, (rows, k))
     g = s // gsub
     # bases rounded to f16 values, like real GGUF d / dmin
@@ -348,6 +356,8 @@ def synth_qtensor_device(gen: torch.Generator, rows: int, k: int,
              * (0.01 / qmax / 32)).half().float() if has_mins else None)
     codes = ri(1, 64, (rows, s), torch.int8)
     mcodes = ri(0, 64, (rows, s), torch.int8) if has_mins else None
+    if has_mins and zero_mean:  # the min code is the scale code, dmin = d qmax / 2
+        mcodes, dmin = codes, (d * (qmax / 2)).half().float()
     if has_mins and s % 16 == 0:
         sc, mn = codes.to(torch.int32), mcodes.to(torch.int32)
         a1 = (sc | ((mn >> 4) << 6)).to(torch.uint8)
@@ -531,18 +541,38 @@ def expert_rows(w, e: int, n_expert: int):
 
 
 def expert_linear(x: torch.Tensor, w, ids: torch.Tensor, n_expert: int,
-                  impl: str = "kernel") -> torch.Tensor:
+                  impl: str = "kernel", per_expert: int | None = None) -> torch.Tensor:
     """Row p of x (P, K) through expert ids[p] of stacked weights -> (P, N)
     in x's dtype: quantized experts through the expert-indexed GEMV (its
-    plain version for impl "plain"), dense ones as a gathered product."""
+    plain version for impl "plain"; `per_expert` bounds the pairs of one
+    expert), dense ones as a gathered product."""
     if isinstance(w, QTensor):
         n = w.n_rows // n_expert
         if impl == "plain":
-            return qgemv_indexed_plain(x, w, ids, n)
+            return qgemv_indexed_plain(x, w, ids, n, per_expert)
         if impl != "kernel":
             raise ValueError(f"unknown matmul_impl {impl!r}")
-        return qmatmul_indexed(x, w, ids, n)
+        return qmatmul_indexed(x, w, ids, n, per_expert)
     return torch.einsum("pk,pnk->pn", x.float(), w[ids.long()].float()).to(x.dtype)
+
+
+def moe_combine(y: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Each row's k expert outputs y (R, k, E) under its f32 routing
+    weights w (R, k) -> (R, E) in `dtype`, summed in the JAX package's
+    order: top-k order for one row (prima_tpu/models/llama.py:1080-1086),
+    ascending expert id for more (:1088-1094), sorted on the device. From
+    zeros, each pair costs one cast of its weight, one multiply and one add
+    in `dtype`. The reference also adds 0 * y for every expert a row did
+    not pick: a signed zero, which leaves the bits of a finite sum alone."""
+    if ids.shape[0] > 1:
+        ids, order = torch.sort(ids, dim=-1)
+        w = torch.gather(w, 1, order)
+        y = torch.gather(y, 1, order[..., None].expand_as(y))
+    out = torch.zeros((y.shape[0], y.shape[-1]), dtype=dtype, device=y.device)
+    for j in range(ids.shape[1]):
+        out = out + w[:, j:j + 1].to(dtype) * y[:, j]
+    return out
 
 
 def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -551,9 +581,10 @@ def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     router runs in f32: softmax, top-k, normalized top-k weights unless
     moe_norm_w is off (qwen2moe, olmoe). Fewer than MAX_B (row, expert)
     pairs go through the expert-indexed GEMV, one launch a projection that
-    reads each pair's expert id on the device, summed in top-k order;
-    wider inputs loop over every expert in index order with zero weight
-    for the rows that did not pick it, as the JAX package does."""
+    finds the experts among the ids on the device and reads each chosen
+    one once, summed in the reference's order (`moe_combine`); wider
+    inputs loop over every expert in index order with zero weight for the
+    rows that did not pick it, as the JAX package does."""
     b, s, e = x.shape
     k_used, n_exp = cfg.n_expert_used, cfg.n_expert
     probs = torch.softmax(linear(x, layer["ffn_gate_inp"], opts.matmul_impl).float(), -1)
@@ -565,14 +596,13 @@ def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     if rows * k_used < MAX_B:
         xp = x.reshape(rows, e).repeat_interleave(k_used, dim=0)  # pair p: row p // k
         idp = ids.reshape(-1).to(torch.int32)
-        gate, up = (expert_linear(xp, t, idp, n_exp, opts.matmul_impl) for t in stacked[:2])
+        # a row's k experts are distinct: one expert holds at most `rows` pairs
+        gate, up = (expert_linear(xp, t, idp, n_exp, opts.matmul_impl, rows)
+                    for t in stacked[:2])
         y = expert_linear(gated_act(gate, up, cfg.act), stacked[2], idp, n_exp,
-                          opts.matmul_impl).reshape(rows, k_used, e)
-        wv = w.reshape(rows, k_used).to(x.dtype)
-        out = torch.zeros((rows, e), dtype=x.dtype, device=x.device)
-        for j in range(k_used):
-            out = out + wv[:, j:j + 1] * y[:, j]
-        out = out.reshape(b, s, e)
+                          opts.matmul_impl, rows).reshape(rows, k_used, e)
+        out = moe_combine(y, w.reshape(rows, k_used), ids.reshape(rows, k_used),
+                          x.dtype).reshape(b, s, e)
     else:
         per_expert = torch.where(
             ids[..., None, :] == torch.arange(n_exp, device=x.device)[:, None],

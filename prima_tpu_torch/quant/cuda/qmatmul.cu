@@ -43,16 +43,28 @@
 //    distributed shared memory was tried and was slower: clusters of 8
 //    blocks of ~106 KB each wait for four free SMs of one GPC.)
 //
-// The expert-indexed entry, `prima_qgemv_indexed`, runs the same kernels
+// The expert-indexed entry, `prima_qgemv_indexed`, runs the same bodies
 // for mixture-of-experts decode (the counterpart of the JAX package's
-// dynamic slice of the stacked experts before qmatmul_pallas): P (row,
-// expert) pairs, each as B = 1, on a third grid axis. A block reads its
-// pair's expert id from device memory and moves every weight pointer by
-// that many experts (the experts are contiguous row ranges of the stacked
-// arrays), so nothing waits on the host and no expert is copied; x, the
-// output, the split-K scratch and the arrival counters move by the pair,
-// so two pairs on one expert never share a counter. Each pair reads its
-// expert's bytes on its own: pairs on one expert read it twice.
+// dynamic slice of the stacked experts before qmatmul_pallas): P <= 32
+// (row, expert) pairs grouped by expert, one launch. The third grid axis
+// runs over expert slots, min(E, P) of them. Every warp of block z reads
+// the ids from device memory and finds, with a match, a rank by shuffles
+// and two ballots, the z-th smallest distinct id and that expert's pairs
+// (a bit mask, ascending); a slot with no expert exits. The block moves
+// every weight pointer by that many experts (the experts are contiguous row
+// ranges of the stacked arrays), so nothing waits on the host and no expert
+// is copied, and runs the pairs as the batch columns of one body: x rows
+// are staged and results written through the column -> pair map, and the
+// expert's weights stream once through the ring for all of them. An expert
+// with more pairs than the template's columns runs further passes in the
+// same block (the caller bounds them: `per_expert`); split-K scratch and
+// arrival counters belong to a (slot, pass). A column's f32 sums depend on
+// that column alone, so a pair's result has the same bits whichever pairs
+// share its expert. Measured on the H100: the 8-column tensor-core body
+// lost to passes of 4 at every grouping tried, so nib4 groups take 4
+// columns; int8 takes 1 column for one pair an expert, else 2 (a column
+// costs an FMA a weight on the CUDA cores, and 4 lost wherever an expert
+// held 2 pairs or fewer).
 //
 // nib4 weights (Q4_K, Q4_0, Q4_1: byte i holds col i in its low nibble and
 // col i + K/2 in its high one) go to `qgemv_mma`, on the tensor cores:
@@ -108,34 +120,68 @@ struct Args {
   int B, N, K, sub_shift, gsub_shift, q_offset, smode, ksb, ksplit;
 };
 
-// The indexed entry's experts: (P,) ids and the bytes between two experts
-// in each array (qs, scales, mins, d, dmin; 0 for an absent one).
+// Which row of x and of the output batch column b is: b itself for the
+// plain entry, its pair for the indexed one.
+struct SameRows {
+  __device__ __forceinline__ int operator()(int b) const { return b; }
+};
+struct MaskRows {
+  unsigned pairs;  // the pass's pairs as a bit mask, column b = the b-th set bit
+  __device__ __forceinline__ int operator()(int b) const {
+    unsigned m = pairs;
+    for (int i = 0; i < b; ++i) m &= m - 1;
+    return __ffs(m) - 1;
+  }
+};
+
+// The indexed entry's experts: (P,) ids on the device, the passes of the
+// template's columns an expert may take (the scratch and counters hold that
+// many a slot), and the bytes between two experts in each array (qs,
+// scales, mins, d, dmin; 0 for an absent one).
 struct Experts {
   const int* ids;
+  int P, passes;
   long long stride[5];
 };
 
-// The arguments of this block's (row, expert) pair (blockIdx.z) under the
-// indexed entry, where B = 1 a pair.
-__device__ __forceinline__ Args pair_args(const Args& a0, const Experts& ex) {
-  Args a = a0;
-  const int p = blockIdx.z;
-  const long long e = __ldg(ex.ids + p);
+// Slot blockIdx.z's expert `e` (the z-th smallest distinct id) and its
+// pairs as a bit mask (0 for a slot with no expert). Every warp finds them
+// on its own, so no barrier stands before the first load.
+__device__ __forceinline__ unsigned find_group(const Experts& ex, int& e) {
+  constexpr unsigned ALL = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int id = lane < ex.P ? __ldg(ex.ids + lane) : 0x7FFFFFFF;
+  // a lane stands for its id when no lower lane holds it
+  const unsigned same = __match_any_sync(ALL, id);
+  const unsigned firsts = __ballot_sync(ALL, lane < ex.P && !(same & ((1u << lane) - 1u)));
+  int rank = 0;  // distinct ids below this lane's
+  for (unsigned m = firsts; m; m &= m - 1) rank += __shfl_sync(ALL, id, __ffs(m) - 1) < id;
+  const unsigned hit = __ballot_sync(ALL, (firsts >> lane & 1u) && rank == (int)blockIdx.z);
+  if (!hit) return 0u;
+  e = __shfl_sync(ALL, id, __ffs(hit) - 1);
+  return __ballot_sync(ALL, lane < ex.P && id == e);
+}
+
+// The arguments of pass `pass` over the pairs `count` of expert e: every
+// weight pointer moved to the expert, B the pass's columns, the split-K
+// scratch and counters of its (slot, pass).
+__device__ __forceinline__ void group_args(Args& a, const Args& a0, const Experts& ex, int e,
+                                           int cols, int pass, int count) {
   auto at = [e](const void* base, long long stride) -> const void* {
     return base ? static_cast<const unsigned char*>(base) + e * stride : nullptr;
   };
-  a.x += (size_t)p * a.K;
-  a.out += (size_t)p * a.N;
+  a = a0;
+  a.qs = static_cast<const uint8_t*>(at(a0.qs, ex.stride[0]));
+  a.scales = at(a0.scales, ex.stride[1]);
+  a.mins = at(a0.mins, ex.stride[2]);
+  a.d = at(a0.d, ex.stride[3]);
+  a.dmin = at(a0.dmin, ex.stride[4]);
+  a.B = min(cols, count - pass * cols);
   if (a.ksplit > 1) {
-    a.part += (size_t)p * a.ksplit * a.N;
-    a.done += (size_t)p * gridDim.y;
+    const size_t unit = (size_t)blockIdx.z * ex.passes + pass;
+    a.part = a0.part + unit * a.ksplit * cols * a.N;
+    a.done = a0.done + unit * gridDim.y;
   }
-  a.qs = static_cast<const uint8_t*>(at(a.qs, ex.stride[0]));
-  a.scales = at(a.scales, ex.stride[1]);
-  a.mins = at(a.mins, ex.stride[2]);
-  a.d = at(a.d, ex.stride[3]);
-  a.dmin = at(a.dmin, ex.stride[4]);
-  return a;
 }
 
 // The raw scale words of one sub-block, loaded a stage ahead of use.
@@ -397,14 +443,17 @@ struct Slice {
 // arrival is one acq_rel atomic by one thread after a block barrier: it
 // publishes the whole block's part and, for the last block, makes every
 // other part visible, with no fence of its own.
-template <int NB, typename F>
-__device__ __forceinline__ void finish(const Args& a, int n0, F value) {
+template <int NB, typename Rows, typename F>
+__device__ __forceinline__ void finish(const Args& a, int n0, const Rows& rmap, F value) {
   const int tid = threadIdx.x;
   const size_t bn = (size_t)a.B * a.N;
   float* dst = a.ksplit > 1 ? a.part + blockIdx.x * bn : a.out;
   for (int idx = tid; idx < RB * NB; idx += THREADS) {
     const int row = idx % RB, b = idx / RB;
-    if (b < a.B && n0 + row < a.N) dst[(size_t)b * a.N + n0 + row] = value(row, b);
+    if (b < a.B && n0 + row < a.N) {
+      const int r = a.ksplit > 1 ? b : rmap(b);  // a part is by column, out by row
+      dst[(size_t)r * a.N + n0 + row] = value(row, b);
+    }
   }
   if (a.ksplit == 1) return;
   __shared__ unsigned int arrived;
@@ -430,7 +479,7 @@ __device__ __forceinline__ void finish(const Args& a, int n0, F value) {
 #pragma unroll
         for (int u = 0; u < 8; ++u) v += p[u];
       }
-      a.out[at] = v;
+      a.out[(size_t)rmap(b) * a.N + n0 + row] = v;
     }
   }
 }
@@ -451,8 +500,8 @@ __device__ __forceinline__ float byte_to_f32(uint32_t v, int i) {
 //   raw   RAW_BYTES of raw scale words
 //   xs    NB x ksb floats: the block's slice of x
 //   xsum  NB x ksb / GRAN floats: sums of x over GRAN columns
-template <int NB, int GRAN>
-__device__ __forceinline__ void qgemv_fma_body(const Args& a) {
+template <int NB, int GRAN, typename Rows>
+__device__ __forceinline__ void qgemv_fma_body(const Args& a, const Rows& rmap) {
   constexpr int GPU = UNIT / GRAN;     // groups (sub-blocks) per unit
   constexpr int EPR = UNITS * GPU;     // (scale, bias) entries per row and stage
   static_assert(GRAN == 16 || GRAN == 32, "sub-blocks of 16 or 32");
@@ -485,7 +534,7 @@ __device__ __forceinline__ void qgemv_fma_body(const Args& a) {
         xv[k] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (in && b0 + k < a.B)
           xv[k] = __ldg(reinterpret_cast<const float4*>(
-              a.x + (size_t)(b0 + k) * a.K + sl.kb0) + i4);
+              a.x + (size_t)rmap(b0 + k) * a.K + sl.kb0) + i4);
       }
 #pragma unroll
       for (int k = 0; k < XU; ++k) {
@@ -592,7 +641,7 @@ __device__ __forceinline__ void qgemv_fma_body(const Args& a) {
 #pragma unroll
     for (int b = 0; b < NB; ++b) red[(u * NB + b) * RB + rows[r]] = acc[r][b];
   __syncthreads();
-  finish<NB>(a, sl.n0, [&](int row, int b) {
+  finish<NB>(a, sl.n0, rmap, [&](int row, int b) {
     float v = red[b * RB + row];
 #pragma unroll
     for (int k = 1; k < UNITS; ++k) v += red[(k * NB + b) * RB + row];
@@ -635,8 +684,8 @@ __device__ __forceinline__ uint32_t bf16_bits(float x) {
 //   xb    2 halves x NC columns x (ksb + 16) bf16: the parts of x, rows
 //         padded by 32 bytes so that 8 columns' reads miss each other's banks
 //   xg    2 halves x ksb / 32 groups x NC floats: the parts' sums over 32 columns
-template <int NT>
-__device__ __forceinline__ void qgemv_mma_body(const Args& a) {
+template <int NT, typename Rows>
+__device__ __forceinline__ void qgemv_mma_body(const Args& a, const Rows& rmap) {
   constexpr int NB = 4 * NT, NC = 8 * NT, EPR = 2 * UNITS;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
@@ -669,7 +718,7 @@ __device__ __forceinline__ void qgemv_mma_body(const Args& a) {
         xq[k] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (in && b < a.B)
           xq[k] = __ldg(reinterpret_cast<const float4*>(
-              a.x + (size_t)b * a.K + h * (a.K >> 1) + sl.kb0) + i4);
+              a.x + (size_t)rmap(b) * a.K + h * (a.K >> 1) + sl.kb0) + i4);
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -805,7 +854,7 @@ __device__ __forceinline__ void qgemv_mma_body(const Args& a) {
         red[(u * NC + 8 * n + 2 * t4 + (i & 1)) * RB + row0 + 16 * m + 8 * (i >> 1)] =
             acc[m][n][i];
   __syncthreads();
-  finish<NB>(a, sl.n0, [&](int row, int b) {
+  finish<NB>(a, sl.n0, rmap, [&](int row, int b) {
     float v = 0.f;
 #pragma unroll
     for (int k = 0; k < UNITS; ++k)
@@ -814,31 +863,74 @@ __device__ __forceinline__ void qgemv_mma_body(const Args& a) {
   });
 }
 
-// The kernels: the plain entry's, and the indexed entry's, which first move
-// their arguments to the block's pair.
+// The indexed entry's block: its slot's expert and pairs (find_group),
+// then the pairs through `body` as COLS columns. A group that fits runs in
+// one pass with its arguments in registers, as the plain kernels do; a
+// wider one runs passes of COLS with the arguments in shared memory, which
+// keeps the loop around the body from spilling its registers.
+template <int COLS, typename Body>
+__device__ __forceinline__ void run_groups(const Args& a0, const Experts& ex, Body body) {
+  int e;
+  unsigned mine = find_group(ex, e);
+  const int count = __popc(mine);
+  if (count <= COLS) {
+    if (count) {  // the same for every thread of the block
+      Args a;
+      group_args(a, a0, ex, e, COLS, 0, count);
+      body(a, MaskRows{mine});
+    }
+    return;
+  }
+  __shared__ Args sa;
+  for (int pass = 0; mine; ++pass) {
+    unsigned cur = mine;  // this pass's pairs: the next COLS of them
+    for (int i = 0; i < COLS && mine; ++i) mine &= mine - 1;
+    cur &= ~mine;
+    if (pass == ex.passes) {  // more pairs than the caller's bound: NaN, not stale memory
+      const MaskRows rest{cur | mine};
+      for (int idx = threadIdx.x; idx < RB * __popc(rest.pairs); idx += THREADS) {
+        const int n = blockIdx.y * RB + idx % RB;
+        if (blockIdx.x == 0 && n < a0.N)
+          a0.out[(size_t)rest(idx / RB) * a0.N + n] = __int_as_float(0x7FC00000);
+      }
+      return;
+    }
+    if (pass > 0) __syncthreads();  // the last pass is done with shared memory and `sa`
+    if (threadIdx.x == 0) group_args(sa, a0, ex, e, COLS, pass, count);
+    __syncthreads();
+    body(sa, MaskRows{cur});
+  }
+}
+
+// The kernels: the plain entry's, and the indexed entry's, which group the
+// pairs by expert first.
 template <int NB, int GRAN>
 __global__ void __launch_bounds__(THREADS, 2) qgemv_fma(const Args a) {
-  qgemv_fma_body<NB, GRAN>(a);
+  qgemv_fma_body<NB, GRAN>(a, SameRows{});
 }
 template <int NB, int GRAN>
 __global__ void __launch_bounds__(THREADS, 2) qgemv_fma_indexed(const Args a,
                                                                 const Experts ex) {
-  qgemv_fma_body<NB, GRAN>(pair_args(a, ex));
+  run_groups<NB>(a, ex, [](const Args& g, const MaskRows& rows) {
+    qgemv_fma_body<NB, GRAN>(g, rows);
+  });
 }
 template <int NT>
 __global__ void __launch_bounds__(THREADS, 2) qgemv_mma(const Args a) {
-  qgemv_mma_body<NT>(a);
+  qgemv_mma_body<NT>(a, SameRows{});
 }
 template <int NT>
 __global__ void __launch_bounds__(THREADS, 2) qgemv_mma_indexed(const Args a,
                                                                 const Experts ex) {
-  qgemv_mma_body<NT>(pair_args(a, ex));
+  run_groups<4 * NT>(a, ex, [](const Args& g, const MaskRows& rows) {
+    qgemv_mma_body<NT>(g, rows);
+  });
 }
 
-// A launch of `kernel` over `pairs` (the indexed entry's; 1 for the plain
-// one), its arguments `a` and `extra`.
+// A launch of `kernel` over `slots` (the indexed entry's expert slots; 1
+// for the plain entry), its arguments `a` and `extra`.
 template <typename K, typename... Extra>
-int launch_kernel(K kernel, size_t smem, size_t* smem_set, int pairs, cudaStream_t stream,
+int launch_kernel(K kernel, size_t smem, size_t* smem_set, int slots, cudaStream_t stream,
                   const Args& a, const Extra&... extra) {
   if (smem > *smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -846,8 +938,8 @@ int launch_kernel(K kernel, size_t smem, size_t* smem_set, int pairs, cudaStream
     if (e != cudaSuccess) return (int)e;
     *smem_set = smem;
   }
-  // a row block's slices run together; the indexed entry's pairs on z
-  const dim3 grid(a.ksplit, (a.N + RB - 1) / RB, pairs);
+  // a row block's slices run together; the indexed entry's slots on z
+  const dim3 grid(a.ksplit, (a.N + RB - 1) / RB, slots);
   kernel<<<grid, THREADS, smem, stream>>>(a, extra...);
   return (int)cudaGetLastError();
 }
@@ -855,26 +947,26 @@ int launch_kernel(K kernel, size_t smem, size_t* smem_set, int pairs, cudaStream
 constexpr size_t RING_BYTES = (size_t)STAGES * RB * SB;
 
 template <int NB, int GRAN, bool IDX = false>
-int launch_fma(const Args& a, cudaStream_t stream, const Experts& ex = {}, int pairs = 1) {
+int launch_fma(const Args& a, cudaStream_t stream, const Experts& ex = {}, int slots = 1) {
   constexpr int EPR = UNITS * (UNIT / GRAN);
   const size_t smem = RING_BYTES + EPR * RB * sizeof(float2) +
                       RAW_BYTES +
                       (size_t)NB * (a.ksb + a.ksb / GRAN) * sizeof(float);
   static size_t smem_set = 48 * 1024;  // the default limit for dynamic smem
   if constexpr (IDX)
-    return launch_kernel(qgemv_fma_indexed<NB, GRAN>, smem, &smem_set, pairs, stream, a, ex);
+    return launch_kernel(qgemv_fma_indexed<NB, GRAN>, smem, &smem_set, slots, stream, a, ex);
   else
     return launch_kernel(qgemv_fma<NB, GRAN>, smem, &smem_set, 1, stream, a);
 }
 
 template <int NT, bool IDX = false>
-int launch_mma(const Args& a, cudaStream_t stream, const Experts& ex = {}, int pairs = 1) {
+int launch_mma(const Args& a, cudaStream_t stream, const Experts& ex = {}, int slots = 1) {
   const size_t smem = RING_BYTES + 2 * UNITS * RB * sizeof(float2) +
                       RAW_BYTES + (size_t)2 * 8 * NT * (a.ksb + 16) * sizeof(__nv_bfloat16) +
                       (size_t)2 * (a.ksb / 32) * 8 * NT * sizeof(float);
   static size_t smem_set = 48 * 1024;
   if constexpr (IDX)
-    return launch_kernel(qgemv_mma_indexed<NT>, smem, &smem_set, pairs, stream, a, ex);
+    return launch_kernel(qgemv_mma_indexed<NT>, smem, &smem_set, slots, stream, a, ex);
   else
     return launch_kernel(qgemv_mma<NT>, smem, &smem_set, 1, stream, a);
 }
@@ -885,6 +977,12 @@ int launch_int8(const Args& a, cudaStream_t stream) {
   if (a.B <= 2) return launch_fma<2, GRAN>(a, stream);
   if (a.B <= 4) return launch_fma<4, GRAN>(a, stream);
   return launch_fma<8, GRAN>(a, stream);
+}
+
+template <int GRAN>
+int launch_int8_indexed(const Args& a, cudaStream_t stream, const Experts& ex, int slots) {
+  if (a.B == 1) return launch_fma<1, GRAN, true>(a, stream, ex, slots);
+  return launch_fma<2, GRAN, true>(a, stream, ex, slots);
 }
 
 int log2_exact(int v) {
@@ -942,24 +1040,34 @@ extern "C" int prima_qgemv(const float* x, const uint8_t* qs, const void* scales
 // The expert-indexed GEMV: y (P, N) with y[p] = dequant(W_e)(N, K) . x[p]
 // for e = ids[p], where W is the stacked experts (E * N rows) and
 // estride_* the bytes between two experts in each array (0 for an absent
-// one). ids stays on the device. With ksplit > 1, `part` is f32 scratch
-// (P, ksplit, N) and `done` holds P * ceil(N / 128) counters, 0 before the
-// first launch and after each. Returns as prima_qgemv.
+// one). ids (P <= 32) stays on the device. `slots` = min(E, P) blocks on
+// the third grid axis, one a distinct expert; each runs its expert's pairs
+// in passes of `cols` batch columns (nib4 4, int8 1 or 2), at
+// most `passes` of them, which the caller sizes from a bound on the pairs
+// of one expert (more pairs give NaN rows). ksb and ksplit are for `cols`
+// rows of x. With ksplit > 1, `part` is f32 scratch (slots, passes,
+// ksplit, cols, N) and `done` holds slots * passes * ceil(N / 128)
+// counters, 0 before the first launch and after each. Returns as
+// prima_qgemv.
 extern "C" int prima_qgemv_indexed(const float* x, const uint8_t* qs, const void* scales,
                                    const void* mins, const void* d, const void* dmin,
                                    float* out, float* part, unsigned int* done,
                                    const int* ids, int P, int N, int K, int layout, int sub,
                                    int gsub, int q_offset, int smode, int ksb, int ksplit,
+                                   int slots, int cols, int passes,
                                    long long estride_qs, long long estride_scales,
                                    long long estride_mins, long long estride_d,
                                    long long estride_dmin, void* stream) {
-  if (P < 1 || P > 65535 || !ids || !shapes_ok(1, K, layout, sub, gsub, ksb, ksplit, part, done))
+  const bool cols_ok = layout == NIB4 ? cols == 4 : cols == 1 || cols == 2;
+  if (P < 1 || P > 32 || slots < 1 || slots > P || passes < 1 || !cols_ok || !ids ||
+      !shapes_ok(cols, K, layout, sub, gsub, ksb, ksplit, part, done))
     return -1;
-  const Args a{x, qs, scales, mins, d, dmin, out, part, done, 1, N, K, log2_exact(sub),
+  const Args a{x, qs, scales, mins, d, dmin, out, part, done, cols, N, K, log2_exact(sub),
                log2_exact(gsub), q_offset, smode, ksb, ksplit};
-  const Experts ex{ids, {estride_qs, estride_scales, estride_mins, estride_d, estride_dmin}};
+  const Experts ex{ids, P, passes,
+                   {estride_qs, estride_scales, estride_mins, estride_d, estride_dmin}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (layout == NIB4) return launch_mma<1, true>(a, st, ex, P);
-  if (sub == 16) return launch_fma<1, 16, true>(a, st, ex, P);
-  return launch_fma<1, 32, true>(a, st, ex, P);
+  if (layout == NIB4) return launch_mma<1, true>(a, st, ex, slots);
+  if (sub == 16) return launch_int8_indexed<16>(a, st, ex, slots);
+  return launch_int8_indexed<32>(a, st, ex, slots);
 }

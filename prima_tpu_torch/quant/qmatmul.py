@@ -20,11 +20,14 @@ on the tensor cores: nibbles are exact in bf16, x is split into a bf16
 high and low part (residual <= 2^-17 |x|, inside the 1e-4 tolerance),
 accumulators are f32. int8 weights stay exact in f32 on the CUDA cores,
 where a lane owns two rows and x is read as broadcast float4s. More than
-8 rows run in passes of 8. `qgemv_indexed` runs the same kernels for
-mixture-of-experts decode: a third grid axis over (row, expert) pairs,
-each block reading its pair's expert id on the device and offsetting its
-weight rows (the counterpart of the JAX package's dynamic slice of the
-stacked experts followed by qmatmul_pallas). The JAX package's sigma column permutation,
+8 rows run in passes of 8. `qgemv_indexed` runs the same bodies for
+mixture-of-experts decode (the counterpart of the JAX package's dynamic
+slice of the stacked experts followed by qmatmul_pallas), grouped by
+expert: a third grid axis over expert slots, each block finding its
+slot's expert among the ids on the device, offsetting its weight rows and
+running that expert's pairs as the batch columns of one body, so each
+chosen expert's bytes are read once a launch (`indexed_launch` sizes it
+from the shapes alone). The JAX package's sigma column permutation,
 tile repeats, 8-row padding and VMEM knobs have no counterpart: they only
 serve the TPU.
 """
@@ -176,10 +179,39 @@ def _lib_indexed():
     lib = nvcc.load(SOURCE)
     fn = lib.prima_qgemv_indexed
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
                        + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def indexed_cols(per_expert: int, layout: str) -> int:
+    """Batch columns of the indexed kernel's body a pass for experts of at
+    most `per_expert` pairs. nib4: 4, one mma column tile (8 columns were
+    slower than passes of 4 on the H100 at every grouping measured). int8: 1
+    for one pair, else 2: the CUDA cores pay an FMA a weight a column, so 4
+    columns lose wherever an expert holds 2 pairs or fewer, the common case
+    of a 4-row decode."""
+    if layout == "nib4":
+        return 4
+    return 1 if per_expert <= 1 else 2
+
+
+def indexed_launch(n: int, row_bytes: int, p: int, n_exp: int, per_expert: int,
+                   layout: str, ksplit: int | None = None) -> tuple[int, int, int, int, int]:
+    """(slots, cols, passes, ksplit, ksb) of an indexed launch, a pure
+    function of the shapes and of `per_expert`, the most pairs one expert
+    can hold: min(E, P) expert slots on the grid, `indexed_cols` batch
+    columns a pass, enough passes for `per_expert` pairs, and K cut as
+    `gemv_split` cuts it for `cols` rows of x and n * slots output rows (the
+    slots bound the distinct experts from above; `ksplit` overrides the cut
+    as qgemv's does)."""
+    if not 1 <= per_expert <= p:
+        raise ValueError(f"qgemv_indexed: per_expert {per_expert} for {p} pairs")
+    cols = indexed_cols(per_expert, layout)
+    slots = min(n_exp, p)
+    n_slices, ksb = _slices(n * slots, row_bytes, cols, layout, ksplit)
+    return slots, cols, -(-per_expert // cols), n_slices, ksb
 
 
 def _expert_count(qt: QTensor, n: int) -> int:
@@ -189,11 +221,12 @@ def _expert_count(qt: QTensor, n: int) -> int:
 
 
 def qgemv_indexed_plain(x: torch.Tensor, qt: QTensor, ids: torch.Tensor,
-                        n: int) -> torch.Tensor:
+                        n: int, per_expert: int | None = None) -> torch.Tensor:
     """The expert-indexed GEMV in plain PyTorch: row p of x (P, K) through
     rows [ids[p] n, (ids[p] + 1) n) of the stacked experts `qt`, each
     expert's slice dequantized once for the pairs that chose it -> (P, n)
-    in x's dtype. Reads the ids on the host."""
+    in x's dtype. Reads the ids on the host; `per_expert` (the kernel's
+    launch bound) is not needed here."""
     _expert_count(qt, n)
     out = torch.empty((x.shape[0], n), dtype=x.dtype, device=x.device)
     ids_host = ids.cpu()
@@ -204,48 +237,54 @@ def qgemv_indexed_plain(x: torch.Tensor, qt: QTensor, ids: torch.Tensor,
 
 
 def qgemv_indexed(x: torch.Tensor, qt: QTensor, ids: torch.Tensor, n: int,
-                  ksplit: int | None = None) -> torch.Tensor:
+                  ksplit: int | None = None, per_expert: int | None = None) -> torch.Tensor:
     """The expert-indexed GEMV: x (P, K) f32, P <= 32 (row, expert) pairs,
     `qt` the stacked experts of E * n rows, ids (P,) int32 expert ids on
     the device -> (P, n) f32, row p = dequant(expert ids[p]) @ x[p]. One
-    launch for all pairs; the kernel reads each pair's id and offsets its
-    weight rows, so nothing syncs to the host and no expert is copied. A
-    CPU tensor takes `qgemv_indexed_plain`."""
+    launch for all pairs: a block a distinct expert finds it among the ids
+    on the device, reads its bytes once for all its pairs, and offsets its
+    weight rows, so nothing syncs to the host and no expert is copied.
+    `per_expert` (default P) bounds the pairs of any one expert; a caller
+    whose rows pick distinct experts passes the row count. `ksplit`
+    overrides `indexed_launch`'s K cut. A CPU tensor takes
+    `qgemv_indexed_plain`."""
     n_exp = _expert_count(qt, n)
     if x.device.type == "cpu":
-        return qgemv_indexed_plain(x, qt, ids, n)
+        return qgemv_indexed_plain(x, qt, ids, n, per_expert)
     _check(x, qt)
     p, k = x.shape[0], qt.n_cols
     if ids.dtype != torch.int32 or ids.shape != (p,) or ids.device != x.device \
             or not ids.is_contiguous():
         raise ValueError("qgemv_indexed wants contiguous int32 ids (P,) on x's device")
-    # each pair runs as B = 1; the pairs together fill the card
-    n_slices, ksb = _slices(n * p, qt.qs.shape[1], 1, qt.layout, ksplit)
+    slots, cols, passes, n_slices, ksb = indexed_launch(
+        n, qt.qs.shape[1], p, n_exp, p if per_expert is None else per_expert, qt.layout,
+        ksplit)
     out = torch.empty((p, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     part = done = None
-    n_blocks = -(-n // ROW_BLOCK)
-    if n_slices > 1:  # each pair's own scratch and arrival counters
-        part = torch.empty((p, n_slices, n), dtype=torch.float32, device=x.device)
-        done = _done_counters(x.device, stream, p * n_blocks)
+    if n_slices > 1:  # each (slot, pass) has its own scratch and arrival counters
+        part = torch.empty((slots, passes, n_slices, cols, n), dtype=torch.float32,
+                           device=x.device)
+        done = _done_counters(x.device, stream, slots * passes * -(-n // ROW_BLOCK))
     ptr = lambda a: None if a is None else a.data_ptr()
     # bytes between two experts in each array (every array holds E * n rows)
     stride = lambda a: 0 if a is None else a.numel() * a.element_size() // n_exp
     rc = _lib_indexed()(ptr(x), ptr(qt.qs), ptr(qt.scales), ptr(qt.mins), ptr(qt.d),
                         ptr(qt.dmin), ptr(out), ptr(part), ptr(done), ptr(ids), p, n, k,
                         0 if qt.layout == "nib4" else 1, qt.sub, qt.gsub, qt.q_offset,
-                        _SMODE[scale_mode(qt)], ksb, n_slices,
+                        _SMODE[scale_mode(qt)], ksb, n_slices, slots, cols, passes,
                         *(stride(a) for a in qt.tensors()), stream)
     nvcc.check(rc, "qgemv_indexed launch")
     indexed_launches.count += 1
     return out
 
 
-def qmatmul_indexed(x: torch.Tensor, qt: QTensor, ids: torch.Tensor,
-                    n: int) -> torch.Tensor:
+def qmatmul_indexed(x: torch.Tensor, qt: QTensor, ids: torch.Tensor, n: int,
+                    per_expert: int | None = None) -> torch.Tensor:
     """x (P, K) through the experts ids (P,) of stacked `qt` -> (P, n) in
     x's dtype, through the expert-indexed GEMV."""
-    return qgemv_indexed(x.float().contiguous(), qt, ids, n).to(x.dtype)
+    return qgemv_indexed(x.float().contiguous(), qt, ids, n,
+                         per_expert=per_expert).to(x.dtype)
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:

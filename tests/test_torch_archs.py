@@ -62,6 +62,11 @@ ARCHS = {
     "qwen2moe": dict(moe=(4, 2), qkv_bias=True, shexp=True),
     "grok": dict(moe=(4, 2), post_norms=("attn_out_norm", "layer_out_norm")),
     "arctic": dict(moe=(4, 2), arctic=True),
+    # top-4 of 8: the reference sums a wide input's experts in id order
+    "mixtral-top4": dict(arch="llama", moe=(8, 4)),
+    "olmoe": dict(moe=(8, 4), qk_norm="full"),
+    "dbrx": dict(moe=(8, 4), fused_qkv=True, no_ffn_norm=True, attn_out_norm=True,
+                 kv={"attention.clamp_kqv": 0.3}),
 }
 
 
@@ -135,7 +140,10 @@ def write_model(path, name: str, ftype=F32, n_embd: int = 64, n_heads: int = 4,
                     vec(p + f"attn_{t}.bias", n, around=0.0)
                 if spec.get("bitnet"):
                     vec(p + f"attn_{t}.scale", 1, around=1.1)
-        if spec.get("qk_norm"):
+        if spec.get("qk_norm") == "full":  # olmoe: RMS over the whole q / k vectors
+            norm(p + "attn_q_norm", nq, False)
+            norm(p + "attn_k_norm", nk, False)
+        elif spec.get("qk_norm"):
             norm(p + "attn_q_norm", hd, spec["qk_norm"] == "head_ln")
             norm(p + "attn_k_norm", hd, spec["qk_norm"] == "head_ln")
         mat(p + "attn_output.weight", n_embd, nq)
@@ -146,6 +154,8 @@ def write_model(path, name: str, ftype=F32, n_embd: int = 64, n_heads: int = 4,
             vec(p + "attn_output.scale", 1, around=0.9)
         if not spec.get("no_ffn_norm"):
             norm(p + "ffn_norm", n_embd, ln_bias)
+        if spec.get("attn_out_norm"):  # dbrx: the norm before the experts
+            vec(p + "attn_out_norm.weight", n_embd)
         if "moe" in spec:
             n_exp = spec["moe"][0]
             mat(p + "ffn_gate_inp.weight", n_exp, n_embd, scale=0.5, dense=True)

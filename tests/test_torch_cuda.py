@@ -127,8 +127,42 @@ def test_qgemv_rejects_what_it_cannot_take(dev):
         qm.qgemv(torch.randn(512, 4, device=dev).t(), qt)
 
 
-IDS = {"top2": [2, 0], "8 pairs, repeats": [1, 1, 3, 0, 2, 2, 0, 3], "one expert": [3] * 5,
-       "31 pairs": [(7 * i + 3) % 4 for i in range(31)]}
+def _top2_rows(rows: int, heavy: int = 0) -> list:
+    """Top-2 of 4 experts for `rows` rows, the first `heavy` of them on expert 3."""
+    rng = np.random.default_rng(rows)
+    return [int(e) for r in range(rows) for e in (
+        [3, rng.integers(0, 3)] if r < heavy else rng.choice(4, 2, replace=False))]
+
+
+# ids and the most pairs one expert holds as moe_ffn bounds it (None: P)
+IDS = {"top2": ([2, 0], None), "8 pairs, repeats": ([1, 1, 3, 0, 2, 2, 0, 3], None),
+       "one expert": ([3] * 5, None), "31 pairs": ([(7 * i + 3) % 4 for i in range(31)], None),
+       "4 rows on 2 experts": ([0, 1, 1, 0, 0, 1, 1, 0], 4),
+       "8 rows top-2": (_top2_rows(8), 8), "15 rows top-2": (_top2_rows(15, heavy=10), 15)}
+
+
+def _check_indexed(qt, x, idt, n, per_expert=None):
+    """One launch against the plain version; equal bits over four runs; the
+    arrival counters back at 0; and a pair that shares its expert gets the
+    bits it gets alone under the same K cut (alone, an int8 pair takes the
+    1-column template)."""
+    p = x.shape[0]
+    before = qm.indexed_launches.count
+    y = qm.qgemv_indexed(x, qt, idt, n, per_expert=per_expert)
+    ref = qm.qgemv_indexed_plain(x, qt, idt, n, per_expert)
+    torch.cuda.synchronize()
+    assert qm.indexed_launches.count == before + 1
+    assert (y - ref).abs().max().item() <= GEMV_TOL * ref.abs().max().item()
+    again = [qm.qgemv_indexed(x, qt, idt, n, per_expert=per_expert) for _ in range(3)]
+    ids = idt.tolist()
+    ksplit = qm.indexed_launch(n, qt.qs.shape[1], p, qt.n_rows // n, per_expert or p,
+                               qt.layout)[3]
+    for i in {next((i for i, e in enumerate(ids) if ids.count(e) > 1), 0), p - 1}:
+        alone = qm.qgemv_indexed(x[i:i + 1], qt, idt[i:i + 1], n, ksplit=ksplit)
+        assert torch.equal(alone[0], y[i])
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, a) for a in again)
+    assert all(int(c.count_nonzero()) == 0 for c in qm._done.values())
 
 
 @pytest.mark.parametrize("ids", list(IDS.values()), ids=list(IDS))
@@ -136,15 +170,52 @@ IDS = {"top2": [2, 0], "8 pairs, repeats": [1, 1, 3, 0, 2, 2, 0, 3], "one expert
 @pytest.mark.parametrize("t,k,mode", FORMATS, ids=lambda v: getattr(v, "name", str(v)))
 def test_qgemv_indexed_matches_plain(dev, t, k, mode, n, ids):
     """Row p through expert ids[p] of 4 stacked experts, one launch."""
+    ids, per_expert = ids
     qt = _weights(dev, t, 4 * n, k, seed=len(ids))
     x = torch.randn(len(ids), k, device=dev)
-    idt = torch.tensor(ids, dtype=torch.int32, device=dev)
-    before = qm.indexed_launches.count
-    y = qm.qgemv_indexed(x, qt, idt, n)
-    ref = qm.qgemv_indexed_plain(x, qt, idt, n)
+    _check_indexed(qt, x, torch.tensor(ids, dtype=torch.int32, device=dev), n, per_expert)
+
+
+def test_qgemv_indexed_many_experts(dev):
+    """Qwen1.5-MoE-A2.7B's gate/up (60 experts of 1408 x 2048, Q4_K), top-4
+    of 4 rows: 16 pairs, so the grid holds 16 expert slots, not 60."""
+    rng = np.random.default_rng(60)
+    ids = [int(e) for _ in range(4) for e in rng.choice(60, 4, replace=False)]
+    qt = _weights(dev, GGMLType.Q4_K, 60 * 1408, 2048, seed=60)
+    x = torch.randn(len(ids), 2048, device=dev)
+    _check_indexed(qt, x, torch.tensor(ids, dtype=torch.int32, device=dev), 1408, 4)
+
+
+@pytest.mark.parametrize("t,k", [(GGMLType.Q6_K, 512), (GGMLType.Q8_0, 512),
+                                 (GGMLType.Q4_K, 512)], ids=lambda v: getattr(v, "name", str(v)))
+def test_qgemv_indexed_passes(dev, t, k):
+    """Six pairs on one expert under bounds of 6 and 8 pairs an expert (nib4
+    two passes of 4, int8 three or four of 2, the last empty): the plain
+    answer, and under one K cut the same bits for every bound, as a
+    column's sums are its own."""
+    qt = _weights(dev, t, 4 * 64, k, seed=7)
+    ids = torch.tensor([2, 2, 0, 2, 2, 2, 1, 2], dtype=torch.int32, device=dev)
+    x = torch.randn(8, k, device=dev)
+    ref = qm.qgemv_indexed_plain(x, qt, ids, 64)
+    ys = [qm.qgemv_indexed(x, qt, ids, 64, ksplit=2, per_expert=b) for b in (6, 8)]
     torch.cuda.synchronize()
-    assert qm.indexed_launches.count == before + 1
-    assert (y - ref).abs().max().item() <= GEMV_TOL * ref.abs().max().item()
+    for y in ys:
+        assert (y - ref).abs().max().item() <= GEMV_TOL * ref.abs().max().item()
+    assert torch.equal(ys[0], ys[1])
+    assert all(int(c.count_nonzero()) == 0 for c in qm._done.values())
+
+
+def test_qgemv_indexed_more_pairs_than_the_bound(dev):
+    """An expert with more pairs than `per_expert` allows: the pairs past the
+    launch's capacity come back NaN, the others right."""
+    qt = _weights(dev, GGMLType.Q4_K, 4 * 64, 512, seed=8)
+    ids = torch.tensor([1] * 6, dtype=torch.int32, device=dev)
+    x = torch.randn(6, 512, device=dev)
+    y = qm.qgemv_indexed(x, qt, ids, 64, per_expert=2)  # one pass of 4 columns
+    ref = qm.qgemv_indexed_plain(x, qt, ids, 64)
+    torch.cuda.synchronize()
+    assert (y[:4] - ref[:4]).abs().max().item() <= GEMV_TOL * ref.abs().max().item()
+    assert bool(y[4:].isnan().all())
 
 
 @pytest.mark.parametrize("t,n,k,ksplits", [
@@ -153,9 +224,10 @@ def test_qgemv_indexed_matches_plain(dev, t, k, mode, n, ids):
     (GGMLType.Q8_0, 256, 4096, (None, 8, 32)),
 ], ids=lambda v: getattr(v, "name", str(v)))
 def test_qgemv_indexed_split_k_repeats(dev, t, n, k, ksplits):
-    """Split K with pairs on one expert: each pair has its own scratch and
-    arrival counters, so every cut gives the plain answer, the same bits on
-    every run, and the counters are back at 0 after each launch."""
+    """Split K with pairs on one expert: each (expert slot, pass) has its
+    own scratch and arrival counters, so every cut gives the plain answer,
+    the same bits on every run, and the counters are back at 0 after each
+    launch."""
     qt = _weights(dev, t, 3 * n, k, seed=5)
     ids = torch.tensor([2, 2, 0, 2, 1, 0, 2, 2], dtype=torch.int32, device=dev)
     x = torch.randn(len(ids), k, device=dev)
