@@ -35,7 +35,14 @@ Phases, each of which fails the run on any error or mismatch:
                over a q4_0 cache, and flash attention under Self-Extend;
                and the same for a tiny gemma2 (softcap, sliding window,
                post norms, GeGLU) and a tiny qwen2moe (the indexed GEMV,
-               a shared expert).
+               a shared expert); then the tiny pair's server in f32 on the
+               card against the same server --device cpu: with the draft
+               model (-md, 4 concurrent requests; the same text as without
+               it), under a GBNF grammar and a response_format JSON schema,
+               with a LoRA adapter written by the port's GGUF writer at
+               scale 1.0 and, through POST /lora-adapters, at 0 (the base
+               text); the draft's acceptance on the card; and the CLI on
+               the card with -md and --json-schema.
   4. full    — the Llama-3-8B shape with Q4_K weights generated on the card:
                Engine(n_slots=4, max_seq=2048) serves 8 requests through
                submit + step_fused(max_chunk=8); the kernels' launch counts
@@ -51,7 +58,22 @@ Phases, each of which fails the run on any error or mismatch:
                no quantized cache may be materialized; one decode step near
                position 4000 over f32 caches and over seeded q8_0 caches,
                every kernel against every plain version.
-  6. moe     — Mixtral-8x7B at full width and depth (8 experts, top-2),
+  6. spec    — speculative decoding at full width: the 8B-shape target of
+               phase 4 and a Llama-3.2-1B-shape Q4_K draft generated on the
+               card, one slot, max_seq 2048, 8 drafts a round. In f32: 32
+               greedy tokens from a 128-token prompt through the plain
+               engine, the host SpeculativeDecoder and FusedSpeculative,
+               equal streams, and each accepted position's verify logits
+               against incremental decode; the target drafting for itself
+               (every draft accepted, every verify chain 9 long). In bf16
+               with flash attention: FusedSpeculative at force_accept 0, 4
+               and 8 (tok/s, wall and device ms a round), plain fused
+               decode beside it, the launch counts of these runs, the
+               synchronizing calls of one call of rounds, and one verify's
+               device time at chain lengths 1-9. Last, a rank-16 LoRA on
+               wq, wv and w_down of every layer: one decode step's f32
+               logits, every kernel against every plain version.
+  7. moe     — Mixtral-8x7B at full width and depth (8 experts, top-2),
                centred Q4_K weights generated on the card after the 8B
                weights are freed: Engine(n_slots=4, max_seq=4096,
                attn_impl="kernel") serves 4 requests of 480-512 prompt
@@ -859,31 +881,51 @@ def _get(port: int, path: str) -> dict:
         conn.close()
 
 
-def _server(extra: list[str], report: dict, key: str, slots: bool = False) -> None:
-    """Start the server on the tiny model with `extra` flags, answer the
-    concurrent requests (and save slot 0 and restore it into slot 1 when
-    `slots`), check that the default path's kernels ran, stop it."""
+def _start_server(extra: list[str], device: str = "cuda"):
+    """python -m prima_tpu_torch.server on the tiny model with `extra` flags;
+    returns (process, port, its output lines, seconds to come up) once
+    /health answers."""
     port = _free_port()
     proc = subprocess.Popen([sys.executable, "-m", "prima_tpu_torch.server", "-m", TINY,
-                             "--device", "cuda", "--port", str(port), *extra], cwd=ROOT,
+                             "--device", device, "--port", str(port), *extra], cwd=ROOT,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     out: list[str] = []
     reader = threading.Thread(target=lambda: out.extend(proc.stdout), daemon=True)
     reader.start()
+    t0 = time.time()
     try:
-        t0 = time.time()
         while True:
             if proc.poll() is not None:
                 raise AssertionError("server exited:\n" + "".join(out))
             try:
                 if _get(port, "/health").get("status") == "ok":
-                    break
+                    return proc, port, out, time.time() - t0
             except OSError:
                 pass
             if time.time() - t0 > 240:
                 raise AssertionError("server did not come up:\n" + "".join(out))
             time.sleep(0.5)
-        log(f"server {' '.join(extra) or '(defaults)'} up in {time.time() - t0:.1f} s")
+    except BaseException:
+        _stop(proc)
+        raise
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def _server(extra: list[str], report: dict, key: str, slots: bool = False) -> None:
+    """Start the server on the tiny model with `extra` flags, answer the
+    concurrent requests (and save slot 0 and restore it into slot 1 when
+    `slots`), check that the default path's kernels ran, stop it."""
+    proc, port, out, up_s = _start_server(extra)
+    try:
+        log(f"server {' '.join(extra) or '(defaults)'} up in {up_s:.1f} s")
         results: dict = {}
 
         def one(i, path, body):
@@ -935,12 +977,7 @@ def _server(extra: list[str], report: dict, key: str, slots: bool = False) -> No
                 raise AssertionError(f"slot restore ran without kv_write: {launches}")
             report[key]["launches"] = launches
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        _stop(proc)
 
 
 def phase_server(report: dict) -> None:
@@ -949,6 +986,189 @@ def phase_server(report: dict) -> None:
     os.makedirs(slot_dir, exist_ok=True)
     _server(["-ctk", "q8_0", "-gan", "2", "-gaw", "64", "--slot-save-path", slot_dir],
             report, "server_long_context", slots=True)
+    phase_server_f32(report)
+    phase_cli(report)
+
+
+DRAFT = os.path.join("models_tiny_pair", "draft.gguf")
+F32_SERVER = ["--dtype", "f32", "-ctk", "f32"]
+GBNF = 'root ::= ("yes" | "no" | "maybe") " " [a-z]+ (" " [a-z]+)* "."'
+SCHEMA = {"type": "object", "properties": {"name": {"type": "string"},
+                                           "age": {"type": "integer"}},
+          "required": ["name", "age"]}
+LORA_TEXTS = ["Once upon a time", "The quick brown fox"]
+
+
+def write_tiny_lora(path: str, seed: int = 4) -> str:
+    """A rank-8 LoRA GGUF for every projection of the tiny target, written
+    with the port's GGUF writer from a seed."""
+    import numpy as np
+
+    from prima_tpu_torch.gguf.reader import GGUFModel
+    from prima_tpu_torch.gguf.writer import GGUFWriter
+    from prima_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.from_gguf(GGUFModel.open(os.path.join(ROOT, TINY)))
+    e, f, nq, nk = (cfg.n_embd, cfg.n_ff, cfg.n_heads * cfg.head_dim,
+                    cfg.n_kv_heads * cfg.head_dim)
+    shapes = {"attn_q": (nq, e), "attn_k": (nk, e), "attn_v": (nk, e), "attn_output": (e, nq),
+              "ffn_gate": (f, e), "ffn_up": (f, e), "ffn_down": (e, f)}
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter(path, arch="llama")
+    w.add_kv("adapter.type", "lora")
+    w.add_kv("adapter.lora.alpha", 16.0)
+    for li in range(cfg.n_layers):
+        for name, (n, k) in shapes.items():
+            w.add_tensor(f"blk.{li}.{name}.weight.lora_a",
+                         (rng.standard_normal((8, k)) * 0.2).astype(np.float32))
+            w.add_tensor(f"blk.{li}.{name}.weight.lora_b",
+                         (rng.standard_normal((n, 8)) * 0.2).astype(np.float32))
+    w.write()
+    return path
+
+
+def _texts(port: int, bodies: list[dict], concurrent: bool = False) -> list[str]:
+    """The /completion text of each body, one after another or all at once."""
+    out: dict = {}
+
+    def one(i, body):
+        out[i] = _post(port, "/completion", body)["choices"][0]["text"]
+
+    if not concurrent:
+        for i, body in enumerate(bodies):
+            one(i, body)
+        return [out[i] for i in range(len(bodies))]
+    threads = [threading.Thread(target=one, args=(i, b)) for i, b in enumerate(bodies)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if len(out) != len(bodies):
+        raise AssertionError(f"only {len(out)} of {len(bodies)} requests answered")
+    return [out[i] for i in range(len(bodies))]
+
+
+def _f32_server_run(device: str, lora: str, lora_tokens: list) -> dict:
+    """The tiny pair's servers in f32 on `device`: with the draft model (4
+    concurrent greedy requests), without it (the same requests, a GBNF and
+    a response_format JSON-schema request, the LoRA prompts' base text), and
+    with the LoRA adapter at scale 1.0, then at scale 0 through
+    POST /lora-adapters."""
+    greedy = [{"prompt": p, "n_predict": 32, "temperature": 0} for p in PROMPTS]
+    # token prompts without BOS, each with another first token, so that no
+    # request reuses a prefix cached at another adapter scale
+    lora_bodies = [{"prompt": t, "n_predict": 32, "temperature": 0} for t in lora_tokens]
+    res: dict = {}
+    for key, flags in (("draft", ["-md", DRAFT]), ("plain", []),
+                       ("lora", ["--lora", lora])):
+        proc, port, out, up_s = _start_server(F32_SERVER + flags, device)
+        try:
+            if key == "draft":
+                res["draft"] = _texts(port, greedy, concurrent=True)
+            elif key == "plain":
+                res["plain"] = _texts(port, greedy, concurrent=True)
+                res["gbnf"], res["json_schema"] = _texts(port, [
+                    {"prompt": "Once upon a time", "n_predict": 32, "temperature": 0,
+                     "grammar": GBNF},
+                    {"prompt": "Once upon a time", "n_predict": 48, "temperature": 0,
+                     "response_format": {"type": "json_schema",
+                                         "json_schema": {"schema": SCHEMA}}}])
+                res["lora_base"] = _texts(port, lora_bodies)
+            else:
+                listed = _get(port, "/lora-adapters")
+                if [r["scale"] for r in listed] != [1.0]:
+                    raise AssertionError(f"/lora-adapters: {listed}")
+                res["lora_1"] = _texts(port, lora_bodies[:1])
+                _post(port, "/lora-adapters", [{"id": 0, "scale": 0.0}])
+                res["lora_0"] = _texts(port, lora_bodies[1:])
+        finally:
+            _stop(proc)
+        log(f"f32 server {' '.join(flags) or '(no draft)'} on {device}: up in {up_s:.1f} s")
+    return res
+
+
+def phase_server_f32(report: dict) -> None:
+    """The tiny pair's f32 servers on the card against the same servers
+    --device cpu: equal text with the draft model (which equals the text
+    without it), under a GBNF grammar and a JSON schema, and with a LoRA
+    adapter at scale 1.0 and at 0 (the base text again). The draft's
+    acceptance on the card comes from the same decoder run in process."""
+    import torch
+
+    from prima_tpu_torch.grammar import GrammarMatcher, parse_gbnf
+    from prima_tpu_torch.grammar.json_schema import json_schema_to_gbnf
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.models.loader import load_model
+    from prima_tpu_torch.runtime.engine import Engine
+    from prima_tpu_torch.runtime.speculative import SpecStats, SpeculativeDecoder
+
+    os.makedirs(os.path.join(ROOT, "build", "chip_smoke"), exist_ok=True)
+    lora = write_tiny_lora(os.path.join(ROOT, "build", "chip_smoke", "tiny_lora.gguf"))
+    tok = load_model(TINY, device="cpu").tokenizer
+    # the byte tokenizer starts every text with the 3 bytes of its space mark
+    lora_tokens = [tok.encode(t, add_special=False)[3:] for t in LORA_TEXTS]
+    t0 = time.time()
+    card = _f32_server_run("cuda", lora, lora_tokens)
+    cpu = _f32_server_run("cpu", lora, lora_tokens)
+    for key, texts in card.items():
+        log(f"f32 server {key}: card {texts!r}")
+        if texts != cpu[key]:
+            raise AssertionError(f"f32 server {key}: card {texts!r} cpu {cpu[key]!r}")
+    if card["draft"] != card["plain"]:
+        raise AssertionError("the server's text with the draft model differs from without")
+    if card["lora_0"] != card["lora_base"][1:] or card["lora_1"] == card["lora_base"][:1]:
+        raise AssertionError(f"LoRA: scale 1 {card['lora_1']!r}, scale 0 {card['lora_0']!r},"
+                             f" base {card['lora_base']!r}")
+    for key, gtext in (("gbnf", GBNF), ("json_schema", json_schema_to_gbnf(SCHEMA))):
+        if not card[key] or not GrammarMatcher(parse_gbnf(gtext)).advance_text(
+                card[key].encode()):
+            raise AssertionError(f"{key} text {card[key]!r} is not in its grammar")
+    # the draft's acceptance over the 4 prompts on the card, in process
+    m, dm = load_model(TINY, device="cuda"), load_model(DRAFT, device="cuda")
+    mk = lambda mm: Engine(mm.cfg, mm.params, n_slots=1, max_seq=256, device="cuda",
+                           opts=ForwardOptions(dtype=torch.float32), kv_dtype=torch.float32,
+                           eog_ids=mm.eog_ids)
+    stats = SpecStats()
+    spec = SpeculativeDecoder(mk(m), mk(dm))
+    for p in PROMPTS:
+        for _ in spec.generate_stream(m.tokenizer.encode(p, add_special=True), n_predict=32,
+                                      stats=stats):
+            pass
+    log(f"tiny pair on the card: {stats.n_accepted} of {stats.n_drafted} drafts accepted "
+        f"({stats.acceptance:.3f}) in {stats.n_target_calls} verify rounds")
+    report["server_f32"] = {"identical_card_cpu": sorted(card), "texts": card,
+                            "draft_acceptance": stats.acceptance,
+                            "drafted": stats.n_drafted, "accepted": stats.n_accepted,
+                            "verify_rounds": stats.n_target_calls, "wall_s": time.time() - t0}
+
+
+def phase_cli(report: dict) -> None:
+    """python -m prima_tpu_torch.tools.cli on the card: with the draft model
+    and a JSON schema, and with the JSON schema alone (its perf line gives
+    the grammar path's decode rate)."""
+    from prima_tpu_torch.grammar import GrammarMatcher, parse_gbnf
+    from prima_tpu_torch.grammar.json_schema import json_schema_to_gbnf
+
+    schema = json.dumps(SCHEMA)
+    report["cli"] = {}
+    for key, extra in (("draft_json_schema", ["-md", DRAFT]), ("json_schema", [])):
+        t0 = time.time()
+        run = subprocess.run(
+            [sys.executable, "-m", "prima_tpu_torch.tools.cli", "-m", TINY, "-p",
+             "Once upon a time", "-n", "48", "--temp", "0", "--no-display-prompt",
+             "--json-schema", schema, "-v", *extra], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        wall = time.time() - t0
+        perf = [ln for ln in run.stderr.splitlines() if ln.startswith("prompt eval")]
+        log(f"cli {' '.join(extra + ['--json-schema'])}: rc {run.returncode}, "
+            f"{wall:.1f} s, {run.stdout.strip()!r} | {perf[-1] if perf else ''}")
+        if run.returncode != 0:
+            raise AssertionError(f"cli failed: {run.stderr[-2000:]}")
+        if not GrammarMatcher(parse_gbnf(json_schema_to_gbnf(SCHEMA))).advance_text(
+                run.stdout.strip().encode()):
+            raise AssertionError(f"cli output {run.stdout!r} is not in the schema's grammar")
+        report["cli"][key] = {"text": run.stdout.strip(), "wall_s": wall,
+                              "perf": perf[-1] if perf else None}
 
 
 # the tiny-parity variants: (name, ForwardOptions.attn_impl on the card,
@@ -1606,10 +1826,345 @@ def phase_moe(dev, report: dict) -> dict:
     return moe["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+# Llama-3.2-1B's config.json (tied embeddings), without its llama3 RoPE
+# frequency factors, as the 8B target leaves them out
+LLAMA32_1B = dict(n_layers=16, n_embd=2048, n_heads=32, n_kv_heads=8, head_dim=64,
+                  n_ff=8192, n_vocab=128256, n_ctx_train=131072, rope_base=500000.0,
+                  rope_dim=64, tie_embeddings=True)
+
+
+def weights_draft(dev):
+    """The Llama-3.2-1B shape with Q4_K weights generated on the card from
+    another seed than the target's."""
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import synth_params_device
+
+    cfg = tiny_config(**LLAMA32_1B)
+    return cfg, synth_params_device(cfg, GGMLType.Q4_K, seed=1, device=dev)
+
+
+def spec_engine(cfg, params, dev, dtype, attn_impl: str = "plain"):
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.runtime.engine import Engine
+
+    return Engine(cfg, params, n_slots=1, max_seq=2048, device=dev, kv_dtype=dtype,
+                  opts=ForwardOptions(attn_impl=attn_impl, dtype=dtype))
+
+
+def free(*engines) -> None:
+    import torch
+
+    for e in engines:
+        e.kv.caches = None
+    gc.collect()  # an engine sits in a reference cycle with its generator
+    torch.cuda.empty_cache()
+
+
+def spec_identity(dev, cfg, params, dcfg, dparams, prompt: list) -> dict:
+    """32 greedy tokens in f32 from the plain engine, the host
+    SpeculativeDecoder and FusedSpeculative (8 drafts a round, p_min 0.75):
+    equal streams, and each accepted position's verify logits within
+    LOGITS_TOL * max |logit| of the plain engine's incremental step."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.runtime.speculative import SpecStats, SpeculativeDecoder
+    from prima_tpu_torch.runtime.speculative_fused import FusedSpeculative
+
+    plain = spec_engine(cfg, params, dev, torch.float32)
+    steps, real = [], plain._decode_raw
+
+    def record(*a):
+        logits, caches = real(*a)
+        steps.append(logits[0].float().cpu().numpy())
+        return logits, caches
+
+    plain._decode_raw = record
+    want = plain.run_to_completion(prompt, n_predict=32)
+    free(plain)
+    t, d = spec_engine(cfg, params, dev, torch.float32), spec_engine(dcfg, dparams, dev,
+                                                                      torch.float32)
+    chains, verify = [], t.verify_chain
+    t.verify_chain = lambda sid, chain: chains.append(verify(sid, chain)) or chains[-1]
+    os.environ["PRIMA_SPEC_FUSED"] = "0"
+    host = SpecStats()
+    try:
+        rounds = list(SpeculativeDecoder(t, d, n_draft=8).generate_stream(prompt, n_predict=32,
+                                                                          stats=host))
+    finally:
+        del os.environ["PRIMA_SPEC_FUSED"]
+    got = [x for r in rounds for x in r]
+    n, worst = 0, 0.0
+    for r, logits in zip(rounds, chains):
+        for j in range(len(r)):
+            ref = steps[n + j]
+            worst = max(worst, float(np.abs(logits[j] - ref).max() / np.abs(ref).max()))
+        n += len(r)
+    fused, fstats = FusedSpeculative(t, d, n_draft=8).generate(prompt, n_predict=32)
+    free(t, d)
+    out = {"tokens": 32, "plain": want, "host_equal": got == want, "fused_equal": fused == want,
+           "host": vars(host), "fused": vars(fstats), "verify_rounds": len(chains),
+           "verify_logits_max_rel_err": worst,
+           "tolerance": f"max|verify - incremental| <= {LOGITS_TOL} * max|logit| (f32)"}
+    log("spec greedy identity (f32)", json.dumps(out))
+    if not (out["host_equal"] and out["fused_equal"]):
+        raise AssertionError(f"speculative streams differ: plain {want} host {got} "
+                             f"fused {fused}")
+    if not worst <= LOGITS_TOL:
+        raise AssertionError(f"verify logits {worst} of max |logit| from incremental decode")
+    return out
+
+
+def spec_self_draft(dev, cfg, params, prompt: list) -> dict:
+    """The target drafting for itself (a second engine on the same weights,
+    f32, p_min 0 so that every round drafts 8): every draft is accepted and
+    every host verify chain is 9 long; 36 tokens are 4 such rounds."""
+    import torch
+
+    from prima_tpu_torch.runtime.speculative import SpecStats, SpeculativeDecoder
+    from prima_tpu_torch.runtime.speculative_fused import FusedSpeculative
+
+    t, d = spec_engine(cfg, params, dev, torch.float32), spec_engine(cfg, params, dev,
+                                                                      torch.float32)
+    lengths, verify = [], t.verify_chain
+    t.verify_chain = lambda sid, chain: lengths.append(len(chain)) or verify(sid, chain)
+    os.environ["PRIMA_SPEC_FUSED"] = "0"
+    host = SpecStats()
+    try:
+        got = [x for r in SpeculativeDecoder(t, d, n_draft=8, p_min=0.0).generate_stream(
+            prompt, n_predict=36, stats=host) for x in r]
+    finally:
+        del os.environ["PRIMA_SPEC_FUSED"]
+    fused, fstats = FusedSpeculative(t, d, n_draft=8, p_min=0.0).generate(prompt, n_predict=36)
+    free(t, d)
+    out = {"host": vars(host), "fused": vars(fstats), "host_chain_lengths": lengths,
+           "streams_equal": got == fused}
+    log("spec target as its own draft (f32)", json.dumps(out))
+    for st in (host, fstats):
+        if not (st.n_drafted == 32 and st.n_accepted == st.n_drafted):
+            raise AssertionError(f"target as draft: {st}")
+    if lengths != [9] * 4 or got != fused:
+        raise AssertionError(f"target as draft: chains {lengths}, streams equal {got == fused}")
+    return out
+
+
+def verify_cost(t, dev, cfg, rng) -> list:
+    """Device ms of one verify forward of a chain of 1-9 tokens at position
+    1024 of the target's slot row (bf16, flash attention), by kernel, beside
+    the bytes bound of reading the GEMV's weights once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from prima_tpu_torch.quant.qtensor import QTensor
+
+    weights = [w for layer in t.params["layers"] for w in layer.values()
+               if isinstance(w, QTensor)] + [t.params["output"]]
+    wbytes = sum(w.nbytes for w in weights)
+    row = t.slot_row(0)
+    out = []
+    for n in range(1, 10):
+        toks = torch.as_tensor(rng.integers(0, cfg.n_vocab, (1, n)), device=dev)
+        pos = torch.arange(1024, 1024 + n, dtype=torch.int32, device=dev)[None]
+        call = lambda: t._fwd_raw(t.params, row, toks, pos, pos[:, 0].contiguous(), pos)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        by, _ = device_ms(prof)
+        out.append({"chain": n, "device_ms": sum(by.values()), "by_kernel_ms": by,
+                    "gemv_passes": -(-n // 8),
+                    "gemv_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3})
+        log(f"verify chain {n}: {sum(by.values()):.3f} ms device (qgemv {by['qgemv']:.3f}, "
+            f"flash_decode {by['flash_decode']:.3f}, flash_prefill {by['flash_prefill']:.3f}, "
+            f"kv_store {by['kv_store']:.3f}); GEMV bound {out[-1]['gemv_bound_ms']:.3f}")
+    return out
+
+
+def count_syncs(fn) -> dict:
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn"): the
+    synchronizing calls it made, by the innermost line of the port on the
+    stack of each."""
+    import traceback
+    import warnings
+
+    import torch
+
+    pkg = os.path.join(ROOT, "prima_tpu_torch")
+    where: Counter = Counter()
+    inside = [False]  # switching the mode itself synchronizes once: not fn's
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        mine = [f for f in stack if f.filename.startswith(pkg)]
+        # else the innermost caller outside torch and this function
+        f = (mine or [f for f in stack if f.filename.startswith(ROOT)] or stack)[-1]
+        thread = threading.current_thread().name
+        where[f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} ({thread})"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        inside[0] = True
+        try:
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+    return {"count": sum(where.values()), "by_line": dict(where.most_common())}
+
+
+def spec_cost(dev, cfg, params, dcfg, dparams, prompt: list, rng) -> dict:
+    """bf16, flash attention: FusedSpeculative at force_accept 0, 4 and 8
+    (8 drafts a round, 8 rounds a call, p_min 0 so that every chain is 9
+    long): tokens per second and wall ms a round of one call, device ms a
+    round of the next under the profiler; plain fused decode of the target
+    beside it; the kernels' launches over these runs; the synchronizing
+    calls of one call of rounds; one verify's device time by chain length."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from prima_tpu_torch.ops import attention as attn
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.quant import qmatmul as qm
+    from prima_tpu_torch.runtime.engine import SlotState
+    from prima_tpu_torch.runtime.speculative_fused import FusedSpeculative
+
+    t = spec_engine(cfg, params, dev, torch.bfloat16, "kernel")
+    d = spec_engine(dcfg, dparams, dev, torch.bfloat16, "kernel")
+    counters = {"qgemv": qm.launches, "flash_decode": attn.decode_launches,
+                "flash_prefill": attn.prefill_launches, "kv_store": kvw.store_launches}
+    t.run_to_completion(prompt[:16], n_predict=2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.count = 0
+    out = {"rounds_per_call": 8, "n_draft": 8, "by_force_accept": {}}
+    for fa in (0, 4, 8):
+        fs = FusedSpeculative(t, d, n_draft=8, p_min=0.0, rounds=8, force_accept=fa)
+        gen = fs.generate_stream(prompt, n_predict=3 * 8 * (fa + 1))
+        next(gen)  # prefill and the first call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = next(gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            next(gen)
+            torch.cuda.synchronize()
+        gen.close()
+        by, top = device_ms(prof)
+        r = {"tokens_per_call": len(toks), "tok_s": len(toks) / wall,
+             "wall_ms_per_round": wall * 1e3 / 8,
+             "device_ms_per_round": sum(by.values()) / 8,
+             "device_idle_share": 1 - sum(by.values()) / (wall * 1e3),
+             "device_ms_per_call": by, "top_kernels_ms": top}
+        out["by_force_accept"][fa] = r
+        log(f"spec force_accept {fa}: {len(toks)} tokens a call, {r['tok_s']:.1f} tok/s, "
+            f"{r['wall_ms_per_round']:.1f} ms wall and {r['device_ms_per_round']:.2f} ms "
+            f"device a round")
+    out["launches"] = {k: c.count for k, c in counters.items()}
+    log("spec launches (bf16, flash attention, 3 force_accept levels)",
+        json.dumps(out["launches"]))
+    if not all(out["launches"].values()):
+        raise AssertionError(f"the speculative path ran without a kernel: {out['launches']}")
+    # the plain fused decode of the target alone, one 8-step chunk timed
+    slot = t.submit(prompt, n_predict=24)
+    t.step_fused(max_chunk=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = len(t.step_fused(max_chunk=8))
+    torch.cuda.synchronize()
+    out["plain_fused_tok_s"] = n / (time.perf_counter() - t0)
+    while slot.state != SlotState.IDLE:
+        t.step_fused(max_chunk=8)
+    log(f"plain fused decode of the target: {out['plain_fused_tok_s']:.1f} tok/s")
+    # the synchronizing calls of one call of 8 rounds (after the first call)
+    gen = FusedSpeculative(t, d, n_draft=8, p_min=0.0, rounds=8,
+                           force_accept=4).generate_stream(prompt, n_predict=80)
+    next(gen)
+    torch.cuda.synchronize()
+    out["syncs_per_call"] = count_syncs(lambda: next(gen))
+    gen.close()
+    log("synchronizing calls in one call of 8 rounds", json.dumps(out["syncs_per_call"]))
+    out["verify"] = verify_cost(t, dev, cfg, rng)
+    free(t, d)
+    return out
+
+
+def spec_lora(dev, cfg, params) -> dict:
+    """A rank-16 LoRA from a seed on wq, wv and w_down of every layer: one
+    decode step's f32 logits at 4 rows, every kernel against every plain
+    version, and how far the adapter moves them."""
+    import torch
+
+    from prima_tpu_torch.models.adapters import apply_lora
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    e, nq, nk, f = (cfg.n_embd, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim,
+                    cfg.n_ff)
+    # strong enough to move logits that the random weights' common mode
+    # dominates (at 0.02 it moved them by 3.5e-5 of their largest)
+    ab = lambda n, k: (torch.randn((16, k), generator=gen, device=dev) * 0.2,
+                       torch.randn((n, 16), generator=gen, device=dev) * 0.2, 2.0)
+    lora = {i: {"wq": ab(nq, e), "wv": ab(nk, e), "w_down": ab(e, f)}
+            for i in range(cfg.n_layers)}
+    lparams = apply_lora(params, lora)
+    toks = torch.as_tensor([[11], [2024], [77777], [128000]], device=dev) % cfg.n_vocab
+    logits = {}
+    for name, p, impl in (("kernel", lparams, "kernel"), ("plain", lparams, "plain"),
+                          ("base", params, "kernel")):
+        kv = init_kv_caches(cfg, 4, 64, torch.float32, dev)
+        with torch.no_grad():
+            logits[name], _ = forward(
+                p, cfg, toks, torch.zeros((4, 1), dtype=torch.int32, device=dev), kv,
+                torch.zeros(4, dtype=torch.int32, device=dev),
+                ForwardOptions(matmul_impl=impl, dtype=torch.float32))
+    out = {"rank": 16, "targets": ["wq", "wv", "w_down"], "layers": cfg.n_layers,
+           "moved_by": (logits["kernel"] - logits["base"]).abs().max().item()}
+    check_logits(out, logits, "8B with LoRA")
+    if not out["moved_by"] > 1e-3 * out["logits_max_abs"]:
+        raise AssertionError(f"the LoRA moved the logits by {out['moved_by']} only")
+    return out
+
+
+def phase_spec(dev, report: dict, cfg, params) -> None:
+    """Speculative decoding at full width: the 8B-shape target, a
+    Llama-3.2-1B-shape draft, one slot, max_seq 2048, 8 drafts a round."""
+    import numpy as np
+    import torch
+
+    dcfg, dparams = weights_draft(dev)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.n_vocab, 128).tolist()
+    spec = {"target": "8B shape Q4_K", "draft": "Llama-3.2-1B shape Q4_K", "max_seq": 2048,
+            "prompt_tokens": 128}
+    spec["identity"] = spec_identity(dev, cfg, params, dcfg, dparams, prompt)
+    spec["self_draft"] = spec_self_draft(dev, cfg, params, prompt)
+    spec["cost"] = spec_cost(dev, cfg, params, dcfg, dparams, prompt, rng)
+    spec["lora"] = spec_lora(dev, cfg, params)
+    report["spec"] = spec
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,server,full,long,moe",
-                    help="comma-separated subset of build,kernels,server,full,long,moe")
+    ap.add_argument("--phases", default="build,kernels,server,full,long,spec,moe",
+                    help="comma-separated subset of build,kernels,server,full,long,spec,moe")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1682,7 +2237,7 @@ def main() -> int:
     # phase's serving run, for the expert-indexed GEMV; the KV write's by the
     # server that restored a slot; the probe's by its own entry point
     launches = dict.fromkeys(("qgemv", "kv_store", "flash_decode", "flash_prefill"))
-    if phases & {"full", "long"}:
+    if phases & {"full", "long", "spec"}:
         cfg, params = weights_8b(dev)
     if "full" in phases:
         t0 = time.time()
@@ -1692,7 +2247,11 @@ def main() -> int:
         t0 = time.time()
         launches = dict(phase_long(dev, report, cfg, params))
         log(f"long: {time.time() - t0:.1f} s")
-    if phases & {"full", "long"}:
+    if "spec" in phases:
+        t0 = time.time()
+        phase_spec(dev, report, cfg, params)
+        log(f"spec: {time.time() - t0:.1f} s")
+    if phases & {"full", "long", "spec"}:
         del params  # the 8B weights make room for Mixtral's
         gc.collect()
         torch.cuda.empty_cache()

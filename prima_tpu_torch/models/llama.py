@@ -7,8 +7,10 @@ KVQ8 / KVQ4) written in place (the JAX forward returns updated copies
 instead). Attention takes the plain `gqa_attention` or, with
 attn_impl="kernel", the flash kernels (not for softcap, sliding-window or
 ALiBi attention, which they do not compute). Mixture-of-experts layers run
-their experts through the expert-indexed GEMV at decode. Control vectors
-and LoRA adapters are not ported yet: a layer that carries one raises.
+their experts through the expert-indexed GEMV at decode. LoRA adapters
+(`*_lora`, models/adapters.py) ride beside the quantized weights of the
+projections the JAX package adapts, and a control vector (`cvec`) is added
+after its layer.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..quant.dequant_np import dequantize_tensor
 from ..quant.device_format import SUPPORTED_TYPES, UQTensor, to_device_format
 from ..quant.qmatmul import MAX_B, qgemv_indexed_plain, qmatmul, qmatmul_indexed
 from ..quant.qtensor import QTensor, dequant_rows, qmatmul_plain
+from .adapters import lora_delta
 from .config import ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -47,6 +50,14 @@ def linear(x: torch.Tensor, w, impl: str = "kernel") -> torch.Tensor:
             raise ValueError(f"unknown matmul_impl {impl!r}")
         return qmatmul(x, w)
     return torch.matmul(x.float(), w.float().t()).to(x.dtype)
+
+
+def linear_l(layer: dict, name: str, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+    """A layer's linear with its LoRA adapters: y = W x + scale * B (A x)."""
+    y = linear(x, layer[name], impl)
+    for ab in layer.get(name + "_lora") or ():
+        y = y + lora_delta(x, ab)
+    return y
 
 
 def embed(tok_embd, token_ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -408,16 +419,6 @@ class ForwardOptions:
     logits_dtype: torch.dtype = torch.float32
 
 
-def _check_layer(layer: dict) -> None:
-    """Control vectors and LoRA adapters wait for the adapters slice: a
-    layer that carries one raises instead of being ignored."""
-    if layer.get("cvec") is not None:
-        raise NotImplementedError("control vectors (cvec) are not ported yet")
-    lora = [k for k in layer if k.endswith("_lora")]
-    if lora:
-        raise NotImplementedError(f"LoRA adapters ({', '.join(lora)}) are not ported yet")
-
-
 def _flash_route(cfg: ModelConfig, opts: ForwardOptions) -> bool:
     """attn_impl "kernel" takes the flash kernels, except for the attention
     variants they do not compute (as llama.py:962-963 of the JAX package)."""
@@ -462,7 +463,7 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         qkv = linear(x, layer["wqkv"], opts.matmul_impl)
         q, k, v = qkv.split([h * hd, kvh * hd, kvh * hd], dim=-1)
     else:
-        q, k, v = (linear(x, layer[n], opts.matmul_impl) for n in ("wq", "wk", "wv"))
+        q, k, v = (linear_l(layer, n, x, opts.matmul_impl) for n in ("wq", "wk", "wv"))
     q, k, v = (_biased(_scaled(a, layer, f"w{n}_scale"), layer, f"b{n}")
                for a, n in zip((q, k, v), "qkv"))
     if cfg.clamp_kqv:  # olmo / dbrx / mpt
@@ -501,7 +502,7 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     out = out.reshape(b, s, h * hd)
     if cfg.sub_norms and layer.get("attn_sub_norm") is not None:
         out = rms_norm(out, layer["attn_sub_norm"], cfg.rms_eps)  # bitnet, before wo
-    out = _scaled(linear(out, layer["wo"], opts.matmul_impl), layer, "wo_scale")
+    out = _scaled(linear_l(layer, "wo", out, opts.matmul_impl), layer, "wo_scale")
     return _biased(out, layer, "bo")
 
 
@@ -512,12 +513,12 @@ def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions, act_fn: str = 
     with the biases, bitnet scales and sub-norm a layer carries."""
     if gated and layer.get("w_gateup") is not None:
         gate, up = linear(x, layer["w_gateup"], opts.matmul_impl).chunk(2, dim=-1)
-        out = linear(gated_act(gate, up, act_fn), layer["w_down"], opts.matmul_impl)
+        out = linear_l(layer, "w_down", gated_act(gate, up, act_fn), opts.matmul_impl)
         return _biased(out, layer, "b_down")
-    up = _biased(_scaled(linear(x, layer["w_up"], opts.matmul_impl), layer, "w_up_scale"),
+    up = _biased(_scaled(linear_l(layer, "w_up", x, opts.matmul_impl), layer, "w_up_scale"),
                  layer, "b_up")
     if gated:
-        gate = _biased(_scaled(linear(x, layer["w_gate"], opts.matmul_impl), layer,
+        gate = _biased(_scaled(linear_l(layer, "w_gate", x, opts.matmul_impl), layer,
                                "w_gate_scale"), layer, "b_gate")
         act = gated_act(gate, up, act_fn)
     elif act_fn == "swiglu_split":  # chatglm: ffn_up holds [gate | up]
@@ -527,7 +528,7 @@ def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions, act_fn: str = 
         act = gated_act(up, torch.ones((), dtype=up.dtype, device=up.device), act_fn)
     if layer.get("ffn_sub_norm") is not None:
         act = rms_norm(act, layer["ffn_sub_norm"], eps)  # bitnet, before ffn_down
-    out = _scaled(linear(act, layer["w_down"], opts.matmul_impl), layer, "w_down_scale")
+    out = _scaled(linear_l(layer, "w_down", act, opts.matmul_impl), layer, "w_down_scale")
     return _biased(out, layer, "b_down")
 
 
@@ -629,8 +630,10 @@ def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
                  mask_pos=None, heads: tuple[int, int] | None = None):
     """One block (prima_tpu/models/llama.py:1111-1193): pre- or swin
     (post-) norms, sequential or parallel attention and FFN, post norms,
-    the residual scale, the dense FFN or the experts (arctic: both)."""
-    _check_layer(layer)
+    the residual scale, the dense FFN or the experts (arctic: both), and
+    last the layer's control vector."""
+    cvec = layer.get("cvec")
+    steer = (lambda v: v) if cvec is None else (lambda v: v + cvec.to(v.dtype))
     norm = lambda v, key: model_norm(v, layer.get(key), layer.get(key + "_b"), cfg)
     attn_in = x if cfg.swin_norm else norm(x, "attn_norm")
     attn_out = attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
@@ -640,7 +643,7 @@ def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
         # command-r / phi2: the FFN shares the attention's normed input;
         # gptneox-style blocks norm the layer input with their own ffn_norm
         ffn_in = attn_in if layer.get("ffn_norm") is None else norm(x, "ffn_norm")
-        return x + attn_out + dense_ffn(ffn_in)
+        return steer(x + attn_out + dense_ffn(ffn_in))
     if cfg.post_norms and layer.get("attn_post_norm") is not None:
         attn_out = rms_norm(attn_out, layer["attn_post_norm"], cfg.rms_eps)
     if cfg.swin_norm:  # chameleon: the same attn_norm weights, after the branch
@@ -654,7 +657,7 @@ def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
         dense = ffn_block(layer, rms_norm(ffn_inp, layer["ffn_norm"], cfg.rms_eps), opts,
                           cfg.act, True, cfg.rms_eps)
         moe = moe_ffn(layer, cfg, rms_norm(x, layer["ffn_norm_exps"], cfg.rms_eps), opts)
-        return moe + dense + ffn_inp
+        return steer(moe + dense + ffn_inp)
     x = x + attn_out
     ffn_in = x if cfg.swin_norm else norm(x, "ffn_norm")
     if cfg.n_expert and layer.get("ffn_gate_inp") is not None:
@@ -667,7 +670,7 @@ def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
         ffn_out = norm(ffn_out, "ffn_norm")
     if cfg.residual_scale != 1.0:
         ffn_out = ffn_out * float(np.float32(cfg.residual_scale))
-    return x + ffn_out
+    return steer(x + ffn_out)
 
 
 def layer_heads(cfg: ModelConfig, i: int) -> tuple[int, int]:

@@ -12,8 +12,10 @@ following the physical cache order.
 Uniform decode invariant: prefill ingests prompt[:-1] only; the last
 prompt token always enters through the batched decode step.
 
-Not ported yet: speculative verification and forks. PyTorch runs eagerly,
-so the JAX engine's scan mode (a compile-time device) has no counterpart.
+The speculative decoders drive it through an engine-agnostic surface:
+prefill_only, verify_chain (logits at every position of a chain on one
+slot) and the slot-row forward `_fwd_raw`. PyTorch runs eagerly, so the
+JAX engine's scan mode (a compile-time device) has no counterpart.
 """
 
 from __future__ import annotations
@@ -144,12 +146,34 @@ class Engine:
         slices the row out and sets it back). pos0 is the physical write
         index, rope0 the logical (RoPE) position; they differ only under
         Self-Extend, and visibility follows the physical one."""
-        s_len = len(tokens)
-        row = [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.kv.caches]
-        steps = np.arange(s_len)[None]
+        steps = np.arange(len(tokens))[None]
         forward(self.params, self.cfg, self._tensor(tokens[None], torch.int64),
-                self._tensor(rope0 + steps), row, self._tensor([pos0]), self.opts,
-                return_hidden=True, mask_positions=self._tensor(pos0 + steps))
+                self._tensor(rope0 + steps), self.slot_row(slot), self._tensor([pos0]),
+                self.opts, return_hidden=True, mask_positions=self._tensor(pos0 + steps))
+
+    def slot_row(self, slot: int) -> list:
+        """Per layer (k, v) views of one slot's cache row (batch 1): a
+        forward over them writes the slot's cells in place."""
+        return [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.kv.caches]
+
+    @torch.no_grad()
+    def _fwd_raw(self, params, caches, tokens, positions, cache_pos, mask_positions=None):
+        """The slot-row forward FusedSpeculative runs: tokens / positions
+        (b, s) and cache_pos (b,) on the device, caches e.g. `slot_row`;
+        returns (logits (b, s, V), caches)."""
+        return forward(params, self.cfg, tokens, positions, caches, cache_pos, self.opts,
+                       mask_positions=mask_positions)
+
+    @torch.no_grad()
+    def _verify(self, tokens: np.ndarray, pos0: int, slot: int) -> torch.Tensor:
+        """Decode `tokens` on one slot's row at positions pos0 + i, logits
+        at every position (s, V). Visibility follows the positions, so each
+        token of the chain sees the ones before it and none after."""
+        positions = self._tensor(pos0 + np.arange(len(tokens))[None])
+        logits, _ = self._fwd_raw(self.params, self.slot_row(slot),
+                                  self._tensor(tokens[None], torch.int64), positions,
+                                  self._tensor([pos0]))
+        return logits[0]
 
     @torch.no_grad()
     def _decode_raw(self, params, caches, tokens, cache_pos, rope_pos):
@@ -202,6 +226,35 @@ class Engine:
             slot.sampler.accept(t, accept_grammar=False)
         if slot.n_prompt_done >= len(slot.prompt) - 1:
             slot.state = SlotState.DECODE  # everything but the last token cached
+        return slot
+
+    def fork(self, src: Slot, sampler: Sampler | None = None, n_predict: int = -1,
+             request_id: Any = None, n_probs: int = 0) -> Slot:
+        """Fork src's ingested context into an idle slot without a second
+        prefill (llama_kv_cache_seq_cp, examples/batched/batched.cpp:139-143).
+        src must be fully prefilled."""
+        if src.state == SlotState.PREFILL:
+            raise ValueError("fork requires a fully prefilled source slot")
+        slot = self.find_idle_slot()
+        if slot is None:
+            raise RuntimeError("no idle slot")
+        self.kv.seq_cp(dst=slot.id, src=src.id)
+        slot.state = SlotState.DECODE
+        slot.prompt = list(src.prompt)
+        slot.n_prompt_done = src.n_prompt_done
+        slot.generated = list(src.generated)
+        slot.sampler = sampler or Sampler(SamplerParams(temp=0.0))
+        slot.n_predict = n_predict
+        slot.request_id = request_id
+        slot.stop_reason = None
+        slot.n_probs = n_probs
+        slot.ga_i = src.ga_i
+        slot.pos_delta = src.pos_delta
+        slot.pos_map = None if src.pos_map is None else src.pos_map.copy()
+        slot.shifts = list(src.shifts)
+        # the penalty window follows the whole context, prompt and generated
+        for t in slot.prompt + slot.generated:
+            slot.sampler.accept(t, accept_grammar=False)
         return slot
 
     def cancel(self, request_id: Any) -> bool:
@@ -472,6 +525,35 @@ class Engine:
         if not self.ctx_shift and self.kv.used(slot.id) >= self.max_seq:
             return True, "context_full"
         return False, None
+
+    # -- the speculative-decoding protocol ---------------------------------------
+
+    def prefill_only(self, slot: Slot) -> None:
+        """Ingest the slot's remaining prompt chunks without decoding (the
+        speculative path's prefill: no sampler state is touched)."""
+        while slot.state == SlotState.PREFILL:
+            self._advance_prefill(slot)
+
+    def verify_chain(self, slot_id: int, chain: list[int]) -> np.ndarray:
+        """Decode `chain` on one slot with logits at every position
+        (s_len, vocab), the batched verification forward. Advances the
+        slot's cache_pos by len(chain); the caller rolls the unaccepted
+        tail back through kv.cache_pos."""
+        pos0 = self.kv.used(slot_id)
+        logits = self._verify(np.asarray(chain, np.int64), pos0, slot_id)
+        self.kv.cache_pos[slot_id] = pos0 + len(chain)
+        self.n_decode_calls += 1
+        return logits.float().cpu().numpy()
+
+    def perf_summary(self) -> str:
+        """llama_perf_context_print analogue."""
+        p = self.perf
+        pp = p["n_prompt"] / p["t_prompt_s"] if p["t_prompt_s"] > 0 else 0.0
+        tg = p["n_decode"] / p["t_decode_s"] if p["t_decode_s"] > 0 else 0.0
+        return (f"prompt eval: {p['n_prompt']} tokens in {p['t_prompt_s']:.2f}s "
+                f"({pp:.1f} tok/s) | decode: {p['n_decode']} tokens in "
+                f"{p['t_decode_s']:.2f}s ({tg:.1f} tok/s) | "
+                f"{self.n_decode_calls} decode calls")
 
     @torch.no_grad()
     def embed(self, prompt_tokens: list[int], pooling: str = "mean") -> np.ndarray:

@@ -73,18 +73,30 @@ class SlotSampleParams:
         return 0 < self.top_k <= MAX_TOPK
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`; to a GPU through pinned memory without
+    blocking the host, so no stream synchronization."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+_F32_PARAMS = ("temp", "top_p", "min_p", "penalty_repeat", "penalty_freq", "penalty_present")
+
+
 def batch_params(params: list, recent_cap: int, device) -> dict:
     """(B,) device tensors of the per-slot parameters; None rows are
     parked and get neutral values."""
     rows = [p or SlotSampleParams(temp=0.0) for p in params]
-    f32 = lambda name: torch.tensor([getattr(p, name) for p in rows],
-                                    dtype=torch.float32, device=device)
-    i32 = lambda vals: torch.tensor(vals, dtype=torch.int32, device=device)
-    sp = {n: f32(n) for n in ("temp", "top_p", "min_p", "penalty_repeat",
-                              "penalty_freq", "penalty_present")}
-    sp["top_k"] = i32([p.top_k if p.bounded() else MAX_TOPK + 1 for p in rows])
-    sp["min_keep"] = i32([max(p.min_keep, 1) for p in rows])
-    sp["eff_last_n"] = i32([eff_last_n(p, recent_cap) for p in rows])
+    f32 = to_device(np.asarray([[getattr(p, n) for p in rows] for n in _F32_PARAMS],
+                               np.float32), device)
+    i32 = to_device(np.asarray([[p.top_k if p.bounded() else MAX_TOPK + 1 for p in rows],
+                                [max(p.min_keep, 1) for p in rows],
+                                [eff_last_n(p, recent_cap) for p in rows]], np.int32),
+                    device)
+    sp = dict(zip(_F32_PARAMS, f32))
+    sp.update(zip(("top_k", "min_keep", "eff_last_n"), i32))
     return sp
 
 

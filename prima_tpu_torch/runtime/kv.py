@@ -79,6 +79,9 @@ class KVCache:
     def _index(self, a: np.ndarray, dtype=np.int64) -> torch.Tensor:
         return torch.from_numpy(a.astype(dtype)).to(self._inv_freq.device)
 
+    def clear(self) -> None:
+        self.cache_pos[:] = 0
+
     def seq_rm(self, slot: int, p0: int = 0, p1: int = -1) -> None:
         """Remove [p0, p1) of a slot. Only the write index moves: the
         causal mask hides every cell at or past it; interior removal
@@ -124,6 +127,23 @@ class KVCache:
         src = np.where(idx < n_keep, idx, idx + n_discard)
         delta = np.where((idx >= n_keep) & (idx < n_keep + move), -n_discard, 0)
         self.remap(slot, src, delta, n_keep + move)
+
+    def seq_add(self, slot: int, p0: int, p1: int, delta: int, move: bool = True) -> None:
+        """Shift the positions of cells [p0, p1) by delta (llama_kv_cache_
+        seq_add). move=True moves the cells, so position == index holds;
+        move=False only re-rotates their K in place (Self-Extend)."""
+        if delta == 0:
+            return
+        used = int(self.cache_pos[slot])
+        p1 = min(p1, used)
+        idx = np.arange(self.max_seq, dtype=np.int32)
+        if move:
+            inrange = (idx >= p0 + delta) & (idx < p1 + delta)
+            src = np.where(inrange, idx - delta, idx)
+            d = np.where(inrange, delta, 0)
+            self.remap(slot, src, d, max(used + (delta if p1 == used else 0), 0))
+        else:
+            self.remap(slot, idx, np.where((idx >= p0) & (idx < p1), delta, 0), used)
 
     def rope_shift(self, slot: int, delta: np.ndarray) -> None:
         """Re-rotate the K of every cell i by delta[i] without moving it

@@ -1,8 +1,10 @@
 """prima-server for the port: python -m prima_tpu_torch.server -m model.gguf
 
 Counterpart of prima_tpu/server/__main__.py on one device (CUDA unless
---device cpu). Options of the JAX server that this port does not carry
-yet raise a "not yet ported" error instead of being ignored.
+--device cpu), with LoRA adapters (--lora, --lora-scaled) and speculative
+decoding with a draft model (-md). Options of the JAX server that this
+port does not carry yet (the distributed ones) raise a "not yet ported"
+error instead of being ignored.
 """
 
 from __future__ import annotations
@@ -45,8 +47,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-ctk", "--cache-type-k", default="bf16",
                     choices=["f32", "bf16", "q8_0", "q4_0"], dest="cache_type")
     ap.add_argument("--alias", default="prima-tpu")
-    ap.add_argument("--lora", action="append", default=[], metavar="FNAME")
-    ap.add_argument("-md", "--model-draft", default=env("MODEL_DRAFT"))
+    ap.add_argument("--lora", action="append", default=[], metavar="FNAME",
+                    help="LoRA adapter GGUF (repeatable)")
+    ap.add_argument("--lora-scaled", action="append", default=[], nargs=2,
+                    metavar=("FNAME", "SCALE"),
+                    help="LoRA adapter GGUF with user scale (repeatable)")
+    ap.add_argument("-md", "--model-draft", default=env("MODEL_DRAFT"),
+                    help="draft model GGUF for speculative decoding")
+    ap.add_argument("--draft-max", "--draft", type=int, default=8, dest="draft_max",
+                    help="max tokens drafted per round")
+    ap.add_argument("--draft-p-min", type=float, default=0.75,
+                    help="draft confidence floor")
     ap.add_argument("--rope-scaling", choices=["none", "linear", "yarn"], default=None)
     ap.add_argument("--rope-freq-base", type=float, default=0.0)
     ap.add_argument("--rope-freq-scale", type=float, default=0.0)
@@ -82,8 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _unported(args) -> str | None:
     """The first requested option this port does not carry yet."""
     checks = [
-        (bool(args.lora), "--lora"),
-        (bool(args.model_draft), "-md / --model-draft"),
         (args.pp * args.tp * args.dp > 1, "--pp / --tp / --dp"),
         (args.world > 1, "-w / --world"),
     ]
@@ -106,7 +115,9 @@ def main(argv=None) -> int:
     from .app import serve
 
     print(f"loading {args.model} ...", file=sys.stderr)
-    model = load_model(args.model, device=args.device, fuse=args.fuse,
+    lora_specs = [(p, 1.0) for p in args.lora] + [(p, float(s)) for p, s in args.lora_scaled]
+    # LoRA adapters target the unfused tensor names: never fuse with one
+    model = load_model(args.model, device=args.device, fuse=args.fuse and not lora_specs,
                        kv_overrides=dict(parse_kv_override(s) for s in args.override_kv))
     apply_rope_overrides(
         model.cfg, rope_scaling=args.rope_scaling, rope_freq_base=args.rope_freq_base,
@@ -116,9 +127,9 @@ def main(argv=None) -> int:
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     kv_dtype = dtypes.get(args.cache_type, args.cache_type)  # or "q8_0" / "q4_0"
     ctx_size = args.ctx_size or model.cfg.n_ctx_train  # -c 0: training context
+    opts = ForwardOptions(matmul_impl=args.matmul, dtype=dtypes[args.dtype])
     engine = Engine(model.cfg, model.params, n_slots=args.parallel, max_seq=ctx_size,
-                    n_batch=args.batch_size,
-                    opts=ForwardOptions(matmul_impl=args.matmul, dtype=dtypes[args.dtype]),
+                    n_batch=args.batch_size, opts=opts,
                     eog_ids=model.eog_ids, kv_dtype=kv_dtype,
                     # Self-Extend disables context shift (server.cpp:2034)
                     ctx_shift=not args.no_context_shift and args.grp_attn_n == 1,
@@ -127,9 +138,30 @@ def main(argv=None) -> int:
     bos = model.tokenizer.vocab.bos_id
     engine.run_to_completion([bos if bos >= 0 else 0], n_predict=1)  # warmup
     print("warmup done", file=sys.stderr)
-    httpd, _ctx = serve(model, engine, args.host, args.port, args.alias,
-                        slot_save_dir=args.slot_save_path,
+
+    loras = []
+    if lora_specs:
+        from ..models.adapters import load_lora_gguf
+
+        loras = [{"id": i, "path": path, "scale": scale,
+                  "data": load_lora_gguf(path, scale=1.0, device=args.device)}
+                 for i, (path, scale) in enumerate(lora_specs)]
+    spec = None
+    if args.model_draft:
+        from ..runtime.speculative import SpeculativeDecoder
+
+        print(f"loading draft {args.model_draft} ...", file=sys.stderr)
+        dmodel = load_model(args.model_draft, device=args.device)
+        # one draft slot per server slot: concurrent requests speculate at once
+        deng = Engine(dmodel.cfg, dmodel.params, n_slots=args.parallel, max_seq=ctx_size,
+                      opts=opts, eog_ids=dmodel.eog_ids, device=args.device)
+        spec = SpeculativeDecoder(engine, deng, n_draft=args.draft_max,
+                                  p_min=args.draft_p_min)
+    httpd, _ctx = serve(model, engine, args.host, args.port, args.alias, loras=loras,
+                        spec=spec, slot_save_dir=args.slot_save_path,
                         api_keys=_load_api_keys(args))
+    if loras:
+        _ctx.set_lora_scales([{"id": r["id"], "scale": r["scale"]} for r in loras])
     print(f"listening on http://{args.host}:{args.port}", file=sys.stderr, flush=True)
     try:
         httpd.serve_forever()

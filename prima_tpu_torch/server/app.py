@@ -1,8 +1,8 @@
 """OpenAI-compatible HTTP server.
 
-Counterpart of prima_tpu/server/app.py for the single-device path. Not
-ported yet: LoRA adapters and grammar / JSON-schema sampling; requests for
-them get a 400 "not yet ported" error.
+Counterpart of prima_tpu/server/app.py for the single-device path, with
+LoRA adapters (/lora-adapters), grammar / JSON-schema sampling and
+speculative decoding with a draft model (`spec`).
 
 The llama-server analogue (reference examples/server/server.cpp): slot-based
 continuous batching over the Engine, SSE streaming, /v1/chat/completions,
@@ -34,27 +34,79 @@ from .scheduler import EngineWorker, GenerationRequest
 
 class ServerContext:
     def __init__(self, model: LoadedModel, engine: Engine, alias: str = "prima-tpu",
-                 slot_save_dir: str | None = None, api_keys: list[str] | None = None):
+                 loras: list | None = None, spec=None, slot_save_dir: str | None = None,
+                 api_keys: list[str] | None = None):
         self.model = model
         self.engine = engine
         self.alias = alias
         # --api-key auth (server.cpp middleware_validate_api_key @2743)
         self.api_keys = set(api_keys or [])
-        self.worker = EngineWorker(engine, model.tokenizer)
+        self.worker = EngineWorker(engine, model.tokenizer, spec=spec)
         self.chat_template = model.gguf.get("tokenizer.chat_template")
         self.t_start = time.time()
+        self._token_bytes = None
+        # /lora-adapters registry: [{"id", "path", "scale", "data"}], "data"
+        # being load_lora_gguf(path, scale=1.0) and "scale" the current user
+        # multiplier; base_params are the params without any adapter
+        self.loras = loras or []
+        self.base_params = model.params if self.loras else None
         # like the reference's --slot-save-path: when set, slot files are
         # confined to this directory (plain filenames only)
         self.slot_save_dir = slot_save_dir
 
+    def set_lora_scales(self, entries: list[dict]) -> None:
+        """POST /lora-adapters (server.cpp:3443): every adapter's scale to
+        0, then the listed ones set, an error on a bad id; the rebuilt
+        params swap in at a safe point of the engine loop."""
+        from ..models.adapters import apply_lora
+
+        if not self.loras:
+            if entries:
+                raise ValueError("invalid adapter id")
+            return
+        parsed = [(int(e["id"]), float(e["scale"])) for e in entries]
+        if any(not 0 <= i < len(self.loras) for i, _ in parsed):
+            raise ValueError("invalid adapter id")  # validate before mutating
+        for rec in self.loras:
+            rec["scale"] = 0.0
+        for i, sc in parsed:
+            self.loras[i]["scale"] = sc
+        params = self.base_params
+        for rec in self.loras:
+            if rec["scale"] != 0.0:
+                params = apply_lora(params, rec["data"], scale=rec["scale"])
+
+        def swap():
+            self.engine.params = params
+
+        self.worker.run(swap)
+
     def start(self):
         self.worker.start()
 
+    def token_bytes(self):
+        if self._token_bytes is None:
+            n = self.model.tokenizer.vocab.n_tokens
+            self._token_bytes = [self.model.tokenizer.decode_token_bytes(i) for i in range(n)]
+        return self._token_bytes
+
     def make_sampler(self, body: dict) -> Sampler:
+        grammar = None
+        gtext = body.get("grammar", "")
         rf = body.get("response_format") or {}
-        if (body.get("grammar") or body.get("json_schema")
-                or rf.get("type") in ("json_schema", "json_object")):
-            raise ValueError("grammar-constrained sampling is not yet ported")
+        schema = body.get("json_schema")
+        if rf.get("type") == "json_schema":
+            schema = (rf.get("json_schema") or {}).get("schema")
+        elif rf.get("type") == "json_object":
+            schema = {"type": "object"}
+        if schema:
+            from ..grammar.json_schema import json_schema_to_gbnf
+
+            gtext = json_schema_to_gbnf(schema)
+        if gtext:
+            from ..grammar.engine import GrammarSampler
+
+            grammar = GrammarSampler(gtext, self.token_bytes(), eog_ids=self.model.eog_ids)
 
         bias = {}
         for k, v in (body.get("logit_bias") or {}).items():
@@ -76,7 +128,7 @@ class ServerContext:
             mirostat_eta=float(body.get("mirostat_eta", 0.1)),
             logit_bias=bias,
         )
-        return Sampler(p, n_vocab=self.model.cfg.n_vocab)
+        return Sampler(p, n_vocab=self.model.cfg.n_vocab, grammar=grammar)
 
 
 def make_handler(ctx: ServerContext):
@@ -208,7 +260,8 @@ def make_handler(ctx: ServerContext):
                     "id": ctx.alias, "object": "model", "created": int(ctx.t_start),
                     "owned_by": "prima-tpu"}]})
             elif path == "/lora-adapters":
-                self._json(200, [])
+                self._json(200, [{"id": rec["id"], "path": rec["path"],
+                                  "scale": rec["scale"]} for rec in ctx.loras])
             elif path == "/slots":
                 slots = [{
                     "id": s.id, "state": s.state.name,
@@ -252,7 +305,8 @@ def make_handler(ctx: ServerContext):
                 elif path == "/detokenize":
                     self._json(200, {"content": tok.decode(body.get("tokens", []))})
                 elif path == "/lora-adapters":
-                    raise ValueError("LoRA adapters are not yet ported")
+                    ctx.set_lora_scales(body if isinstance(body, list) else [])
+                    self._json(200, {"success": True})
                 elif re.fullmatch(r"/slots/\d+", path):
                     self._slot_action(int(path.rsplit("/", 1)[1]), body)
                 else:
@@ -483,11 +537,11 @@ def kernel_launches() -> dict[str, int]:
 
 
 def serve(model: LoadedModel, engine: Engine, host: str = "127.0.0.1", port: int = 8080,
-          alias: str = "prima-tpu", slot_save_dir: str | None = None,
-          api_keys: list[str] | None = None,
+          alias: str = "prima-tpu", loras: list | None = None, spec=None,
+          slot_save_dir: str | None = None, api_keys: list[str] | None = None,
           ) -> tuple[ThreadingHTTPServer, ServerContext]:
-    ctx = ServerContext(model, engine, alias, slot_save_dir=slot_save_dir,
-                        api_keys=api_keys)
+    ctx = ServerContext(model, engine, alias, loras=loras, spec=spec,
+                        slot_save_dir=slot_save_dir, api_keys=api_keys)
     ctx.start()
     httpd = ThreadingHTTPServer((host, port), make_handler(ctx))
     return httpd, ctx

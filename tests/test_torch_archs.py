@@ -57,6 +57,14 @@ ARCHS = {
                 kv={"attention.max_alibi_bias": 8.0, "attention.clamp_kqv": 0.3}),
     "gpt2": dict(ln_bias=True, fused_qkv=True, qkv_bias=True, bo=True, ffn="plain",
                  ffn_bias=True, pos_embd=True),
+    # falcon-40b: a second LayerNorm (attn_norm_2) norms the parallel MLP's input
+    "falcon": dict(ln_bias=True, fused_qkv=True, ffn="plain", no_ffn_norm=True,
+                   attn_norm_2=True),
+    # olmo: LayerNorm without weight or bias (no norm tensors at all)
+    "olmo": dict(weightless_norms=True, kv={"attention.clamp_kqv": 0.3}),
+    # jais: ALiBi, fused biased qkv, a gated FFN with a biased gate
+    "jais": dict(ln_bias=True, fused_qkv=True, qkv_bias=True, bo=True, ffn_bias=True,
+                 gate_bias=True),
     # mixture of experts (test_torch_moe.py)
     "mixtral": dict(arch="llama", moe=(4, 2)),
     "qwen2moe": dict(moe=(4, 2), qkv_bias=True, shexp=True),
@@ -114,6 +122,8 @@ def write_model(path, name: str, ftype=F32, n_embd: int = 64, n_heads: int = 4,
         w.add_tensor(name, (around + rng.standard_normal(n) * 0.05).astype(np.float32))
 
     def norm(name, n, bias):
+        if spec.get("weightless_norms"):
+            return
         vec(name + ".weight", n)
         if bias:
             vec(name + ".bias", n, around=0.0)
@@ -129,6 +139,8 @@ def write_model(path, name: str, ftype=F32, n_embd: int = 64, n_heads: int = 4,
         h, kvh, nf = heads[i], kv_heads[i], ffs[i]
         nq, nk = h * hd, kvh * hd
         norm(p + "attn_norm", n_embd, ln_bias)
+        if spec.get("attn_norm_2"):
+            norm(p + "attn_norm_2", n_embd, True)
         if spec.get("fused_qkv"):
             mat(p + "attn_qkv.weight", nq + 2 * nk, n_embd)
             if spec.get("qkv_bias"):
@@ -180,6 +192,8 @@ def write_model(path, name: str, ftype=F32, n_embd: int = 64, n_heads: int = 4,
         if spec.get("ffn_bias"):
             vec(p + "ffn_up.bias", nf, around=0.0)
             vec(p + "ffn_down.bias", n_embd, around=0.0)
+        if spec.get("gate_bias"):
+            vec(p + "ffn_gate.bias", nf, around=0.0)
         if spec.get("bitnet"):
             vec(p + "ffn_sub_norm.weight", nf)
             for t, a in (("gate", 1.3), ("up", 0.7), ("down", 1.2)):
@@ -213,7 +227,8 @@ def run_both(path: str, b: int = 2, s: int = 10, steps: int = 16, seed: int = 1)
     jkv = jinit_kv(jcfg, b, T, jnp.float32)
     pkv = init_kv_caches(cfg, b, T, torch.float32, "cpu")
     jcur = pcur = toks
-    out = {"cfg": cfg, "jax_logits": [], "port_logits": [], "jax": [], "port": []}
+    out = {"cfg": cfg, "params": params, "jax_logits": [], "port_logits": [], "jax": [],
+           "port": []}
     pos0 = 0
     for _ in range(steps + 1):
         n = jcur.shape[1]

@@ -1,14 +1,16 @@
 """The port's decoder against the JAX package's on the LayerNorm arch
 families (parallel blocks, biases, fused qkv, ALiBi, learned positions,
-q/k/v clamping, embedding norm, scaled and biased logits): the tiny GGUFs
-and the comparison of test_torch_archs.py."""
+q/k/v clamping, embedding norm, scaled and biased logits, falcon-40b's
+second attention norm, olmo's norms without weights, jais's biased gate):
+the tiny GGUFs and the comparison of test_torch_archs.py."""
 
 import pytest
 
 from test_torch_archs import F32, Q8_0, TOL, check_logits, run_both, write_model
 
 CASES = [("phi2", F32), ("command-r", F32), ("starcoder2", F32), ("bloom", F32),
-         ("mpt", Q8_0), ("gpt2", F32), ("gpt2", Q8_0)]
+         ("mpt", Q8_0), ("gpt2", F32), ("gpt2", Q8_0), ("falcon", F32), ("falcon", Q8_0),
+         ("olmo", F32), ("jais", F32)]
 
 
 @pytest.fixture(scope="module", params=CASES, ids=lambda c: f"{c[0]}-{c[1].name}")
@@ -26,9 +28,15 @@ def test_greedy_tokens_match_jax(run):
 
 
 def test_ln_flags_are_set(run):
-    cfg = run["cfg"]
+    cfg, layer = run["cfg"], run["params"]["layers"][0]
     assert cfg.norm_type == "ln"
     assert {"phi2": cfg.parallel_block, "command-r": cfg.parallel_block and cfg.logit_scale == 0.5,
             "starcoder2": not cfg.ffn_gated, "bloom": cfg.alibi_max_bias == 8.0 and cfg.tok_embd_norm,
             "mpt": cfg.alibi_max_bias == 8.0 and cfg.clamp_kqv == pytest.approx(0.3),
-            "gpt2": cfg.pos_embd and cfg.rope_dim == 0}[cfg.arch]
+            "gpt2": cfg.pos_embd and cfg.rope_dim == 0,
+            # attn_norm_2 becomes the parallel MLP's own norm
+            "falcon": cfg.parallel_block and layer.get("ffn_norm_b") is not None,
+            "olmo": all(layer.get(k) is None for k in ("attn_norm", "ffn_norm"))
+            and run["params"].get("output_norm") is None,
+            "jais": cfg.alibi_max_bias == 8.0 and layer.get("b_gate") is not None,
+            }[cfg.arch]

@@ -140,17 +140,34 @@ def test_fused_weights_same_logits(models):
                                _port_logits(m.params, m.cfg, toks), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("extra", [{"cvec": np.zeros(1, np.float32)},
-                                   {"wq_lora": np.zeros(1, np.float32)}],
-                         ids=["cvec", "lora"])
+@pytest.mark.parametrize("extra", ["cvec", "lora"])
 def test_adapter_layers_raise(models, extra):
-    """Control vectors and LoRA adapters are not ported yet: a layer that
-    carries one raises instead of being ignored."""
-    _, _, _, m = models
+    """A layer's control vector or LoRA adapter is no longer refused: it
+    moves the port's logits as it moves the JAX forward's (the GGUF-level
+    checks are in test_torch_adapters.py)."""
+    _, jm, jfwd, m = models
+    cfg = m.cfg
+    rng = np.random.default_rng(6)
+    if extra == "cvec":
+        vec = (rng.standard_normal(cfg.n_embd) * 0.5).astype(np.float32)
+        add, jadd = {"cvec": torch.from_numpy(vec)}, {"cvec": jnp.asarray(vec)}
+    else:
+        a = (rng.standard_normal((4, cfg.n_ff)) * 0.3).astype(np.float32)
+        b = (rng.standard_normal((cfg.n_embd, 4)) * 0.3).astype(np.float32)
+        add = {"w_down_lora": [(torch.from_numpy(a), torch.from_numpy(b), 2.0)]}
+        jadd = {"w_down_lora": [(jnp.asarray(a), jnp.asarray(b), 2.0)]}
     layers = [dict(layer) for layer in m.params["layers"]]
-    layers[-1].update({k: torch.from_numpy(v) for k, v in extra.items()})
-    with pytest.raises(NotImplementedError):
-        _port_logits(dict(m.params, layers=layers), m.cfg, _tokens(m.cfg, 1, 3, seed=5))
+    layers[-1].update(add)
+    jlayers = [dict(layer) for layer in jm.params["layers"]]
+    jlayers[-1].update(jadd)
+    toks = _tokens(cfg, 1, 3, seed=5)
+    got = _port_logits(dict(m.params, layers=layers), cfg, toks)
+    kv = jinit_kv(cfg, 1, T, jnp.float32)
+    pos = np.arange(toks.shape[1], dtype=np.int32)[None]
+    want = np.asarray(jfwd(dict(jm.params, layers=jlayers), toks, pos, kv,
+                           np.zeros(1, np.int32))[0])
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL * np.abs(want).max())
+    assert np.abs(got - _port_logits(m.params, cfg, toks)).max() > 10 * TOL * np.abs(want).max()
 
 
 def test_default_device_is_cuda():

@@ -124,8 +124,9 @@ def test_port_endpoints(servers):
         "qgemv", "qgemv_indexed", "kv_write", "kv_store", "flash_decode", "flash_prefill"}
     st, data = _req(port, "GET", "/metrics")
     assert st == 200 and b"prima:kernel_launches_total" in data
-    st, _ = _req(port, "POST", "/completion", dict(GREEDY, prompt="x", grammar="root ::= \"a\""))
-    assert st == 400
+    # grammar requests are served: the one sentence of the grammar, then EOG
+    st, data = _req(port, "POST", "/completion", dict(GREEDY, prompt="x", grammar="root ::= \"a\""))
+    assert st == 200 and json.loads(data)["choices"][0]["text"] == "a"
 
 
 def test_slot_file_crosses_servers(servers, tmp_path):
@@ -150,5 +151,6 @@ def test_long_context_options_are_accepted():
 
 
 def test_unported_options_exit_with_error(capsys):
-    assert server_main(["-m", PAIR, "--device", "cpu", "--lora", "adapter.gguf"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    for flags in (["--pp", "2"], ["--tp", "2"], ["-w", "2"]):
+        assert server_main(["-m", PAIR, "--device", "cpu", *flags]) == 2
+        assert "not yet ported" in capsys.readouterr().err
