@@ -73,7 +73,30 @@ Phases, each of which fails the run on any error or mismatch:
                device time at chain lengths 1-9. Last, a rank-16 LoRA on
                wq, wv and w_down of every layer: one decode step's f32
                logits, every kernel against every plain version.
-  7. moe     — Mixtral-8x7B at full width and depth (8 experts, top-2),
+  7. ring    — profile_device() on the card (its fields printed) and the
+               layer-window solver on [profile, profile, profile with a
+               tenth of its read rate and flops] (w, n, k, removed; every
+               layer owned once); the 8B shape (Q4_K, each layer drawn from
+               a generator seeded by (seed, layer)) over a world-2 TCP ring
+               on one card, -lw 8,8, k = 2, bf16, flash attention,
+               TcpRingEngine(n_slots=4, n_groups=2), rank 1 a process of
+               its own (this script with --ring-rank 1) that keeps the last
+               4 layers of each window on the card and streams the other
+               4: 4 requests of 128 seeded prompt tokens and 32 greedy
+               tokens; a prefill chunk's and a decode step's logits equal,
+               bit for bit, those of the one-process ring over the same
+               groups, the streams equal it and the Engine's at 4 slots
+               (logits within 1e-2 of max |logit|); rank 1's peak memory
+               under its resident layers, two streamed windows, its KV
+               cache and 0.5 GiB; the one-process ring at -ngl 8 (24
+               layers streamed from pinned memory each step) bit for bit
+               against every layer resident, then pinned against pageable
+               host layers; the hop over loopback (Nagle on and off) and
+               its device-to-host copy; on the tiny pair, the CLI at -w 2
+               (-lw 3,1 -k 1, and with no -lw: profiles, then the solver),
+               -ngl 1, and the f32 server at -w 2 (4 concurrent requests,
+               and one more with -md) against the same at -w 1.
+  8. moe     — Mixtral-8x7B at full width and depth (8 experts, top-2),
                centred Q4_K weights generated on the card after the 8B
                weights are freed: Engine(n_slots=4, max_seq=4096,
                attn_impl="kernel") serves 4 requests of 480-512 prompt
@@ -99,6 +122,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import gc
 import http.client
@@ -2161,12 +2185,685 @@ def phase_spec(dev, report: dict, cfg, params) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase ring: the device profiler, the layer-window solver, the TCP ring
+# ---------------------------------------------------------------------------
+
+# world 2, -lw 8,8, k = 2; rank 1 keeps the last 4 layers of each window on
+# the card and streams the other 4; 4 slots in 2 groups; 4 requests of 128
+# seeded prompt tokens and 32 greedy tokens
+RING = dict(windows=[8, 8], k=2, resident=4, n_slots=4, n_groups=2, max_seq=512,
+            n_batch=128, prompt=128, gen=32, seed=7, ngl=8)
+RING_DEADLINE = 300.0  # seconds: every socket wait of the ring and every rank process
+RING_TOL = 1e-2  # the ring's logits vs the Engine's (B = 2 vs 4): the bf16 tolerance
+RING_MARK = "count_mark"  # a kv message that only this script's rank 1 knows
+
+
+def ring_layer(cfg, i: int, dev):
+    """Layer i of the ring's 8B-shape model: Q4_K weights drawn on the card
+    from a generator seeded by (seed, i), so that every process that makes
+    layer i makes the same one."""
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.llama import synth_layer_device
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RING["seed"] * 1000 + 1 + i)
+    return synth_layer_device(cfg, gen, GGMLType.Q4_K, dev)
+
+
+def ring_params(cfg, dev, resident, streamed=(), head: bool = False) -> tuple:
+    """(params with the `resident` layers on the card and None for the
+    others, the `streamed` layers packed in pinned host memory)."""
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.llama import synth_head_device
+    from prima_tpu_torch.runtime.streaming import pack_host_layer
+
+    params: dict = {"layers": [None] * cfg.n_layers}
+    if head:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(RING["seed"] * 1000)
+        params.update(synth_head_device(cfg, gen, GGMLType.Q4_K, dev))
+    host = {}
+    for i in sorted(set(resident) | set(streamed)):
+        layer = ring_layer(cfg, i, dev)
+        if i in streamed:
+            host[i] = pack_host_layer(layer, pin=True)
+        else:
+            params["layers"][i] = layer
+    torch.cuda.synchronize(dev)
+    return params, host or None
+
+
+def ring_split(plan, rank: int, resident: int) -> tuple[set, set]:
+    """(resident, streamed) layers of a rank that keeps the last `resident`
+    layers of each window on the card (src/llama.cpp:7597-7605)."""
+    streamed = {i for lo, hi in plan.layer_ranges()[rank] for i in range(lo, hi - resident)}
+    return plan.owned(rank) - streamed, streamed
+
+
+def kernel_counts() -> dict:
+    from prima_tpu_torch.ops import attention as attn
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.quant import qmatmul as qm
+
+    return {"qgemv": qm.launches, "kv_store": kvw.store_launches,
+            "flash_decode": attn.decode_launches, "flash_prefill": attn.prefill_launches}
+
+
+def ring_worker_main(port: int, out_path: str) -> int:
+    """Rank 1 of the full-width ring, a process of its own: its layers
+    (8-15 and 24-31, the first 4 of each window streamed), its windows'
+    service loop until STOP, then its peak memory, bytes and launches."""
+    import torch
+
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.parallel.bootstrap import RingConfig, RingNode
+    from prima_tpu_torch.parallel.ring_host import RingPlan
+    from prima_tpu_torch.parallel.ring_tcp import RingContext, TcpRingWorker
+    from prima_tpu_torch.runtime.streaming import layer_nbytes
+
+    dev = torch.device("cuda", 0)
+    cfg = tiny_config(**LLAMA3_8B)
+    plan = RingPlan(RING["windows"], RING["k"])
+    node = RingNode(RingConfig(rank=1, world=2, data_port=port))
+    node.listener.settimeout(RING_DEADLINE)
+    node.connect_ring()
+    resident, streamed = ring_split(plan, 1, RING["resident"])
+    params, host = ring_params(cfg, dev, resident, streamed)
+    worker = TcpRingWorker(RingContext(node, plan, 1, 2), cfg, params,
+                           max_seq=RING["max_seq"], opts=ForwardOptions(attn_impl="kernel"),
+                           n_slots=RING["n_slots"], n_groups=RING["n_groups"],
+                           streamed_host=host, device=dev)
+    apply_kv_op, warmup = worker.w.apply_kv_op, {}
+
+    def apply_or_mark(msg: dict) -> None:
+        """Rank 0's mark after its warm-up request: the measured run starts
+        here, so the counts go to 0 (the warm-up's launches are kept apart)."""
+        if msg["op"] != RING_MARK:
+            return apply_kv_op(msg)
+        warmup.update({k: c.count for k, c in kernel_counts().items()},
+                      streamed_bytes=worker.w.streamer.uploads.bytes)
+        for c in kernel_counts().values():
+            c.count = 0
+
+    worker.w.apply_kv_op = apply_or_mark
+    t0 = time.time()
+    worker.serve(timeout=RING_DEADLINE)
+    node.close()
+    if not warmup:
+        raise AssertionError("rank 1 never got rank 0's mark of the measured run")
+    torch.cuda.synchronize(dev)
+    win = [sum(layer_nbytes(host[i]) for i in ids) for ids in worker.w.streamer.win_ids]
+    kv = sum(a.numel() * a.element_size() for kvc in worker.w.kvc for p in kvc.caches
+             if p is not None for a in p)
+    out = {"peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "resident_gib": sum(layer_nbytes(params["layers"][i]) for i in resident) / 2 ** 30,
+           "window_gib": [w / 2 ** 30 for w in win], "window_bytes": win,
+           "kv_gib": kv / 2 ** 30,
+           "streamed_bytes": worker.w.streamer.uploads.bytes, "serve_s": time.time() - t0,
+           "launches": {k: c.count for k, c in kernel_counts().items()},
+           "warmup": warmup,
+           "layers": sorted(plan.owned(1)), "streamed_layers": sorted(streamed)}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def ring_serve(eng, prompts: list, n_predict: int, dev) -> dict:
+    """A warm-up request, then `prompts` through submit + step (the loop
+    the server's worker runs for this engine), with the kernels' counts set
+    to 0 just before and read just after; on a ring of processes a mark
+    sent round after the warm-up sets the other ranks' counts to 0 too.
+    Captures the logits of the first prefill chunk (the head over its
+    hidden states) and of the first decode step, by group."""
+    import torch
+
+    from prima_tpu_torch.quant.qtensor import dequant_slices
+    from prima_tpu_torch.runtime.streaming import STREAM_DEQUANT_WEIGHTS
+
+    eng.run_to_completion(prompts[0][:16], n_predict=2, reuse_prefix=False)
+    if eng.ctx.world > 1:
+        eng.core._bcast_kv({"op": RING_MARK})
+    cap: dict = {}
+    ring_pass, head = eng.core.ring_pass, eng.core.head
+
+    def capture_pass(groups):
+        hidden = ring_pass(groups)
+        if "prefill" not in cap and groups[0][1].shape[1] > 1:
+            # the head over every row of the chunk is the check's, not the
+            # path's: slices keep its dequant of the output matrix out of
+            # the ranks' peak memory, with the same bits
+            with dequant_slices(STREAM_DEQUANT_WEIGHTS):
+                cap["prefill"] = [head(hidden[g]).float().cpu() for g in sorted(hidden)]
+        return hidden
+
+    def capture_head(h):
+        out = head(h)
+        if len(cap.setdefault("decode", [])) < eng.G:
+            cap["decode"].append(out.float().cpu())
+        return out
+
+    eng.core.ring_pass, eng.core.head = capture_pass, capture_head
+    eng.perf = {k: 0 * v for k, v in eng.perf.items()}
+    calls0 = eng.n_decode_calls
+    torch.cuda.synchronize(dev)
+    for c in kernel_counts().values():
+        c.count = 0
+    slots = [eng.submit(p, n_predict=n_predict, reuse_prefix=False) for p in prompts]
+    t0, steps = time.time(), []
+    while any(s.state.name != "IDLE" for s in slots):
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize(dev)
+        steps.append(time.perf_counter() - t)
+    wall = time.time() - t0
+    launches = {k: c.count for k, c in kernel_counts().items()}
+    eng.core.ring_pass, eng.core.head = ring_pass, head
+    p = eng.perf
+    return {"streams": [list(s.generated) for s in slots], "cap": cap,
+            "prefill_tok_s": p["n_prompt"] / p["t_prompt_s"],
+            "decode_tok_s": p["n_decode"] / p["t_decode_s"], "wall_s": wall,
+            "decode_step_ms": statistics.median(steps[1:]) * 1e3,
+            "first_step_ms": steps[0] * 1e3, "passes": eng.n_decode_calls - calls0,
+            "passes_total": eng.n_decode_calls,
+            "launches": launches}
+
+
+def ring_engine(cfg, params, dev, world: int = 1, node=None, plan=None, streamed=None):
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.parallel.ring_host import RingPlan
+    from prima_tpu_torch.parallel.ring_tcp import RingContext, TcpRingEngine
+
+    plan = plan or RingPlan([cfg.n_layers // RING["k"]], RING["k"])
+    return TcpRingEngine(RingContext(node, plan, 0, world), cfg, params,
+                         n_slots=RING["n_slots"], n_groups=RING["n_groups"],
+                         max_seq=RING["max_seq"], n_batch=RING["n_batch"],
+                         opts=ForwardOptions(attn_impl="kernel"), streamed_host=streamed,
+                         device=dev, recv_timeout=RING_DEADLINE)
+
+
+def bits_equal(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) > 0 and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def ring_hops(dev) -> dict:
+    """One ring hop in the wire's format (a JSON header, then the
+    activation as bf16): one-way ms from 2-way round trips over loopback
+    between two RingNodes, with Nagle's algorithm on (the JAX package's
+    sockets) and with TCP_NODELAY; and the device-to-host copy each hop
+    makes first. Shapes: a decode group (2 rows), 4 decode rows (32 KB on
+    the wire), a prefill group (2 x 127 rows)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.parallel.bootstrap import RingConfig, RingNode
+    from prima_tpu_torch.parallel.ring_tcp import recv_act, send_act, to_host
+
+    out = {}
+    for nodelay in (False, True):
+        port = _free_port()
+        nodes = [RingNode(RingConfig(rank=r, world=2, data_port=port)) for r in range(2)]
+        th = [threading.Thread(target=n.connect_ring) for n in nodes]
+        for t in th:
+            t.start()
+        for t in th:
+            t.join(60)
+        if nodelay:
+            for n in nodes:
+                n.send_sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        for name, shape, n in (("decode_group", (2, 1, 4096), 200),
+                               ("decode_4rows", (4, 1, 4096), 200),
+                               ("prefill_group", (2, 127, 4096), 20)):
+            a = torch.randn(shape, device=dev).to(torch.bfloat16)
+            host = to_host(a)
+
+            def echo():
+                for _ in range(n):
+                    nodes[1].recv_prev(timeout=60)
+                    x = recv_act(nodes[1].recv_sock)
+                    nodes[1].send_next({"tag": "act", "cycle": 0, "group": 0})
+                    send_act(nodes[1].send_sock, x)
+
+            t = threading.Thread(target=echo)
+            t.start()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                nodes[0].send_next({"tag": "act", "cycle": 0, "group": 0})
+                send_act(nodes[0].send_sock, host)
+                nodes[0].recv_prev(timeout=60)
+                recv_act(nodes[0].recv_sock)
+            hop = (time.perf_counter() - t0) / n / 2
+            t.join(60)
+            d2h = []
+            for _ in range(20):
+                torch.cuda.synchronize(dev)
+                t1 = time.perf_counter()
+                to_host(a)
+                d2h.append(time.perf_counter() - t1)
+            key = f"{name}{'_nodelay' if nodelay else ''}"
+            out[key] = {"shape": list(shape), "wire_bytes": int(np.prod(shape)) * 2,
+                        "hop_ms": hop * 1e3, "d2h_ms": statistics.median(d2h) * 1e3}
+            log(f"ring hop {key}: {json.dumps(out[key])}")
+        for n_ in nodes:
+            n_.close()
+    return out
+
+
+def ring_profile(dev) -> dict:
+    """profile_device() on the card, and the solver on two copies of the
+    profile plus one with a tenth of its read rate and its flops: w, n, k,
+    the removed devices; every layer owned exactly once over the k
+    cycles."""
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.parallel.ring_host import RingPlan
+    from prima_tpu_torch.profiler.device import _bench_h2d, print_device_props, profile_device
+    from prima_tpu_torch.profiler.model_cost import model_cost_from_config
+    from prima_tpu_torch.sched import assign_layers_and_select_devices
+
+    t0 = time.time()
+    p = profile_device(dev, full=True, bench_disk=True)
+    log("profile_device():\n" + print_device_props(p))
+    weak = dataclasses.replace(p, hbm_bw=p.hbm_bw / 10, flops_bf16=p.flops_bf16 / 10,
+                               flops_f32=p.flops_f32 / 10,
+                               flops_q4k_dequant=p.flops_q4k_dequant / 10)
+    cfg = tiny_config(**LLAMA3_8B)
+    cost = model_cost_from_config(cfg, GGMLType.Q4_K)
+    res = assign_layers_and_select_devices([p, p, weak], cost, n_ctx=4096)
+    removed = [i for i, w in enumerate(res.w) if w == 0]
+    owned = sorted(i for d in range(3) for i in RingPlan(res.w, res.k).owned(d))
+    log(f"solver on [profile, profile, profile / 10]: w {res.w} n {res.n} k {res.k} "
+        f"removed {removed} classes {res.device_class}")
+    if owned != list(range(cfg.n_layers)):
+        raise AssertionError(f"the solver's windows own layers {owned}")
+    return {"profile": p.to_dict(), "h2d_pageable_bw": _bench_h2d(dev, 64, pin=False),
+            "tf32": False, "solver": {"w": res.w, "n": res.n, "k": res.k,
+                                      "removed": removed, "classes": res.device_class,
+                                      "objective_s": res.objective},
+            "wall_s": time.time() - t0}
+
+
+def ring_full(dev, r: dict) -> None:
+    """The 8B shape over the world-2 ring (rank 1 a process of its own),
+    then the same requests through the one-process ring over the same
+    groups (every layer resident), the Engine at 4 slots, and the
+    one-process ring at -ngl 8 (pinned, then pageable host layers)."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.parallel.bootstrap import RingConfig, RingNode
+    from prima_tpu_torch.parallel.ring_host import RingPlan
+    from prima_tpu_torch.runtime.engine import Engine
+    from prima_tpu_torch.runtime.streaming import layer_nbytes, pack_host_layer
+
+    cfg = tiny_config(**LLAMA3_8B)
+    plan = RingPlan(RING["windows"], RING["k"])
+    rng = np.random.default_rng(RING["seed"])
+    prompts = [rng.integers(0, cfg.n_vocab, RING["prompt"]).tolist() for _ in range(4)]
+    port = _free_port()
+    out_path = os.path.join(ROOT, "build", "chip_smoke", "ring_rank1.json")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ring-rank", "1",
+                             "--ring-port", str(port), "--ring-out", out_path], cwd=ROOT)
+    try:
+        node = RingNode(RingConfig(rank=0, world=2, data_port=port))
+        node.listener.settimeout(RING_DEADLINE)
+        node.connect_ring()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        params, _ = ring_params(cfg, dev, plan.owned(0), head=True)
+        eng = ring_engine(cfg, params, dev, 2, node, plan)
+        try:
+            ring2 = ring_serve(eng, prompts, RING["gen"], dev)
+        finally:
+            eng.stop()
+            node.close()
+        peak0 = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        proc.wait(timeout=RING_DEADLINE)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"ring rank 1 exited with {proc.returncode}")
+    with open(out_path) as f:
+        rank1 = json.load(f)
+    bound = (rank1["resident_gib"] + 2 * max(rank1["window_gib"]) + rank1["kv_gib"] + 0.5)
+    log(f"ring world 2: {ring2['decode_tok_s']:.1f} decode tok/s, "
+        f"{ring2['prefill_tok_s']:.1f} prefill tok/s, decode step "
+        f"{ring2['decode_step_ms']:.1f} ms; rank 0 peak {peak0:.2f} GiB; rank 1 "
+        f"{json.dumps(rank1)}")
+    if rank1["peak_gib"] > bound:
+        raise AssertionError(f"rank 1 peak {rank1['peak_gib']:.2f} GiB over its bound "
+                             f"{bound:.2f}")
+    if rank1["streamed_bytes"] - rank1["warmup"]["streamed_bytes"] \
+            < ring2["passes"] * sum(rank1["window_bytes"]):
+        raise AssertionError("rank 1 did not stream both windows every pass")
+    if not all(ring2["launches"].values()) or not all(rank1["launches"].values()):
+        raise AssertionError(f"a kernel did not run on the ring: rank 0 "
+                             f"{ring2['launches']}, rank 1 {rank1['launches']}")
+
+    # the one-process ring over the same groups, every layer resident
+    for i in sorted(plan.owned(1)):
+        params["layers"][i] = ring_layer(cfg, i, dev)
+    one = ring_serve(ring_engine(cfg, params, dev), prompts, RING["gen"], dev)
+    same = {k: bits_equal(ring2["cap"][k], one["cap"][k]) for k in ("prefill", "decode")}
+    log(f"ring world 2 vs one process, same groups: logits bits equal {same}, streams "
+        f"equal {ring2['streams'] == one['streams']}; one process "
+        f"{one['decode_tok_s']:.1f} decode tok/s, {one['prefill_tok_s']:.1f} prefill tok/s")
+    if not all(same.values()) or ring2["streams"] != one["streams"]:
+        raise AssertionError("the world-2 ring differs from one process over the same groups")
+
+    # the Engine at 4 slots: the same streams, logits within the bf16 tolerance
+    e = Engine(cfg, params, n_slots=RING["n_slots"], max_seq=RING["max_seq"],
+               n_batch=RING["n_batch"], opts=ForwardOptions(attn_impl="kernel"), device=dev)
+    e.run_to_completion(prompts[0][:16], n_predict=2, reuse_prefix=False)
+    first: list = []
+    decode_raw = e._decode_raw
+
+    def capture(*a):
+        out = decode_raw(*a)
+        if not first:
+            first.append(out[0].float().cpu())
+        return out
+
+    e._decode_raw = capture
+    slots = [e.submit(p, n_predict=RING["gen"], reuse_prefix=False) for p in prompts]
+    while any(s.state.name != "IDLE" for s in slots):
+        e.step()
+    e_streams = [list(s.generated) for s in slots]
+    ring_rows = torch.cat([g[:, -1] for g in ring2["cap"]["decode"]])
+    err = (ring_rows - first[0]).abs().max().item()
+    scale = first[0].abs().max().item()
+    log(f"ring vs Engine(4 slots): streams equal {e_streams == ring2['streams']}, first "
+        f"decode logits max |err| {err:.3e} of max |logit| {scale:.3e}")
+    if e_streams != ring2["streams"] or err > RING_TOL * scale:
+        raise AssertionError("the ring's streams or logits differ from the Engine's")
+    del e, slots
+    gc.collect()
+
+    # -ngl 8 on one process: the first 24 layers stream from pinned memory
+    ngl = RING["ngl"]
+    L = cfg.n_layers
+    host = {i: pack_host_layer(params["layers"][i], pin=True) for i in range(L - ngl)}
+    for i in range(L - ngl):
+        params["layers"][i] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ring_engine(cfg, params, dev, plan=RingPlan([L], 1), streamed=host)
+    up = eng.core.streamer.uploads
+    b0 = up.bytes
+    streamed = ring_serve(eng, prompts, RING["gen"], dev)
+    step_bytes = sum(layer_nbytes(h) for h in host.values())
+    same = {k: bits_equal(streamed["cap"][k], one["cap"][k]) for k in ("prefill", "decode")}
+    ngl_r = {k: streamed[k] for k in ("prefill_tok_s", "decode_tok_s", "decode_step_ms",
+                                      "passes", "launches")}
+    ngl_r.update(bits_equal=same, streams_equal=streamed["streams"] == one["streams"],
+                 bytes_per_step=step_bytes, bytes_streamed=up.bytes - b0,
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if not all(same.values()) or streamed["streams"] != one["streams"] \
+            or ngl_r["bytes_streamed"] < step_bytes * streamed["passes"]:
+        raise AssertionError(f"-ngl {ngl} differs from every layer resident: {ngl_r}")
+    # pinned against pageable: the 24 layers' upload alone, and decode steps
+    # of one request, each streaming them
+    pageable = {i: pack_host_layer(h, pin=False) for i, h in host.items()}
+    for name, src in (("pinned", host), ("pageable", pageable)):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        layers = [up.ready(up.start(h)) for h in src.values()]
+        torch.cuda.synchronize(dev)
+        ngl_r[f"{name}_upload_gbs"] = step_bytes / (time.perf_counter() - t) / 1e9
+        del layers
+        eng.core.streamer.host = src
+        s = eng.submit(prompts[1][:32], n_predict=5, reuse_prefix=False)
+        times = []
+        while s.state.name != "IDLE":
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t)
+        ngl_r[f"{name}_step_ms"] = statistics.median(times[1:]) * 1e3
+    log(f"-ngl {ngl} (world 1): {json.dumps(ngl_r)}")
+    r["launches"] = {"rank0": ring2["launches"], "rank1": rank1["launches"]}
+    r["full"] = {"world2": {k: v for k, v in ring2.items() if k not in ("cap", "streams")},
+                 "rank0_peak_gib": peak0, "rank1": rank1, "rank1_bound_gib": bound,
+                 "one_process": {k: v for k, v in one.items() if k not in ("cap", "streams")},
+                 "engine_logits_err": err, "engine_logits_max": scale,
+                 "rank1_bytes_per_step": sum(rank1["window_bytes"]),
+                 "rank1_bytes_per_pass_measured": (rank1["streamed_bytes"]
+                                                   - rank1["warmup"]["streamed_bytes"])
+                 / ring2["passes"],
+                 "ngl": ngl_r}
+    del eng, params, host, pageable
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ring_ranks(module: str, args: list, world: int = 2, log: str | None = None) -> list:
+    """Start `python -m module args --rank r --data-port P` for every rank.
+    Without `log`, return (returncode, stdout, stderr) of each within the
+    deadline (a fresh base port when one of them found its port taken);
+    with it, return the processes at once, their standard error going to
+    build/chip_smoke/{log}_rank{r}.log."""
+    for _ in range(3):
+        port = _free_port()
+        if log:
+            os.makedirs(os.path.join(ROOT, "build", "chip_smoke"), exist_ok=True)
+            procs = []
+            for r in range(world):
+                with open(os.path.join(ROOT, "build", "chip_smoke",
+                                       f"{log}_rank{r}.log"), "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", module, *args, "--data-port", str(port),
+                         "--rank", str(r)], cwd=ROOT, stdout=subprocess.DEVNULL, stderr=f))
+            return procs
+        procs = [subprocess.Popen([sys.executable, "-m", module, *args, "--data-port",
+                                   str(port), "--rank", str(r)], cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(world)]
+        res = []
+        try:
+            for p in procs:
+                o, e = p.communicate(timeout=RING_DEADLINE)
+                res.append((p.returncode, o, e))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if not any(rc and "Address already in use" in e for rc, _, e in res):
+            return res
+    return res
+
+
+def _cli_text(args: list) -> str:
+    """The port's CLI in this process (on the card), its standard output."""
+    import contextlib
+    import io
+
+    from prima_tpu_torch.tools.cli import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(args)
+    if rc != 0:
+        raise AssertionError(f"cli {args} exited {rc}")
+    return buf.getvalue()
+
+
+def _ring_server_texts(flags: list, bodies: list, log: str) -> list:
+    """The tiny pair's server at -w 2 (-lw 2,2) with `flags`: the texts of
+    `bodies`, requested at once; both ranks stopped after."""
+    for _ in range(3):
+        http_port = _free_port()
+        procs = _ring_ranks("prima_tpu_torch.server", [
+            "-m", TINY, "--port", str(http_port), "-w", "2", "-lw", "2,2", "-c", "256", "-b",
+            "64", *flags], log=log)
+        out = []
+        try:
+            t0 = time.time()
+            while time.time() - t0 < RING_DEADLINE and procs[0].poll() is None:
+                try:
+                    if _get(http_port, "/health").get("status") == "ok":
+                        break
+                except OSError:
+                    time.sleep(0.5)
+            if procs[0].poll() is None:
+                out = _texts(http_port, bodies, concurrent=True)
+        finally:
+            procs[0].terminate()  # SIGTERM: rank 0 sends STOP round the ring
+            res = []
+            for r, p in enumerate(procs):
+                try:
+                    rc = p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    rc = p.wait()
+                with open(os.path.join(ROOT, "build", "chip_smoke",
+                                       f"{log}_rank{r}.log")) as f:
+                    res.append((rc, f.read()))
+        if out:
+            return out
+        if not any("Address already in use" in e for _, e in res):
+            break
+    raise AssertionError("ring server: " + " | ".join(e[-1500:] for _, e in res))
+
+
+def _inprocess_server_texts(engine_fn, bodies: list) -> list:
+    """The texts of `bodies` from the server app over engine_fn(model) in
+    this process on the card."""
+    import threading
+
+    from prima_tpu_torch.models.loader import load_model
+    from prima_tpu_torch.server.app import serve
+
+    m = load_model(TINY, device="cuda")
+    httpd, ctx = serve(m, engine_fn(m), "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        return _texts(httpd.server_address[1], bodies, concurrent=True)
+    finally:
+        httpd.shutdown()
+        ctx.worker.shutdown()
+        httpd.server_close()
+
+
+def ring_entry_points(r: dict) -> None:
+    """The normal entry points on the tiny trained pair, each against the
+    same command at -w 1 on the card: the CLI at -w 2 with -lw 3,1 -k 1,
+    the CLI at -w 2 with no -lw (each rank profiles its device, rank 0
+    solves), -ngl 1 on one process; the server at -w 2 (4 concurrent
+    requests, and with -md one more), in f32."""
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.parallel.ring_host import RingPlan
+    from prima_tpu_torch.parallel.ring_tcp import RingContext, TcpRingEngine
+    from prima_tpu_torch.runtime.engine import Engine
+
+    t0 = time.time()
+    cli = ["-m", TINY, "-p", "Once upon a time", "-n", "24", "--temp", "0",
+           "--no-display-prompt", "-c", "256"]
+    # the ring commands run as processes while this one runs the -w 1 side
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        rings = {key: pool.submit(_ring_ranks, "prima_tpu_torch.tools.cli",
+                                  cli + ["-w", "2"] + extra)
+                 for key, extra in (("lw3,1", ["-lw", "3,1", "-k", "1"]), ("auto", []))}
+        want = _cli_text(cli)
+        got = {"ngl1": _cli_text(cli + ["-ngl", "1"])}
+        for key, fut in rings.items():
+            res = fut.result()
+            for rc, _, e in res:
+                if rc != 0:
+                    raise AssertionError(f"cli -w 2 ({key}): {e[-2000:]}")
+            got[key] = res[0][1]
+            if key == "auto":
+                got["auto_schedule"] = [ln for ln in res[0][2].splitlines()
+                                        if ln.startswith("rank ")]
+        log(f"cli on the tiny pair, -w 1: {want!r}; {json.dumps(got)}")
+        if any(got[k] != want for k in ("ngl1", "lw3,1", "auto")):
+            raise AssertionError("a ring CLI's text differs from -w 1's")
+
+        f32 = ForwardOptions(dtype=torch.float32)
+        bodies = [{"prompt": p, "n_predict": 32, "temperature": 0} for p in PROMPTS]
+        engine = lambda m: Engine(m.cfg, m.params, n_slots=4, max_seq=256, n_batch=64,
+                                  opts=f32, kv_dtype=torch.float32, eog_ids=m.eog_ids,
+                                  device="cuda")
+        servers = [pool.submit(_ring_server_texts, F32_SERVER, bodies, "plain"),
+                   pool.submit(_ring_server_texts, F32_SERVER + ["-md", DRAFT], bodies[1:2], "md")]
+        one = _inprocess_server_texts(engine, bodies)
+        ring, md = (f.result() for f in servers)
+        srv = {"w1": one, "w2": ring, "w2_md": md, "equal": ring == one and md == one[1:2]}
+        if not srv["equal"]:
+            # which made it: the one-process ring over the same groups has the
+            # ring's K split and no wire
+            same_groups = lambda m: TcpRingEngine(
+                RingContext(None, RingPlan([2], 2), 0, 1), m.cfg, m.params, n_slots=4,
+                n_groups=2, max_seq=256, n_batch=64, opts=f32, kv_dtype=torch.float32,
+                eog_ids=m.eog_ids, device="cuda")
+            srv["w1_ring_same_groups"] = _inprocess_server_texts(same_groups, bodies)
+            srv["cause"] = ("K split" if srv["w1_ring_same_groups"] == ring else "wire")
+            log(f"ring server text differs from -w 1: {json.dumps(srv)}")
+            if srv["cause"] == "wire":
+                # bf16, where the wire is lossless: the same groups must match exactly
+                bf16 = lambda m: TcpRingEngine(
+                    RingContext(None, RingPlan([2], 2), 0, 1), m.cfg, m.params, n_slots=4,
+                    n_groups=2, max_seq=256, n_batch=64, eog_ids=m.eog_ids, device="cuda")
+                srv["bf16_w1_ring"] = _inprocess_server_texts(bf16, bodies)
+                srv["bf16_w2"] = _ring_server_texts([], bodies, "bf16")
+                if srv["bf16_w2"] != srv["bf16_w1_ring"]:
+                    raise AssertionError(f"bf16 ring server differs from one process: {srv}")
+        log(f"ring server on the tiny pair: {json.dumps(srv)}")
+    r["entry_points"] = {"cli_w1": want, "cli": got, "server": srv,
+                         "wall_s": time.time() - t0}
+
+
+def phase_ring(dev, report: dict) -> None:
+    """The profiler and the solver on the card, the 8B shape over the TCP
+    ring, the ring's entry points on the tiny pair, the hop's cost."""
+    r: dict = {}
+    t0 = time.time()
+    r["profiler"] = ring_profile(dev)
+    log(f"ring profiler + solver: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ring_full(dev, r)
+    log(f"ring full width: {time.time() - t0:.1f} s")
+    r["hops"] = ring_hops(dev)
+    t0 = time.time()
+    ring_entry_points(r)
+    log(f"ring entry points: {time.time() - t0:.1f} s")
+    report["ring"] = r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,server,full,long,spec,moe",
-                    help="comma-separated subset of build,kernels,server,full,long,spec,moe")
+    ap.add_argument("--phases", default="build,kernels,server,full,long,spec,ring,moe",
+                    help="comma-separated subset of build,kernels,server,full,long,spec,ring,"
+                         "moe")
+    # rank 1 of phase ring's full-width ring runs this script with these
+    ap.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--ring-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if args.ring_rank is not None:
+        return ring_worker_main(args.ring_port, args.ring_out)
 
     import torch
 
@@ -2252,9 +2949,18 @@ def main() -> int:
         phase_spec(dev, report, cfg, params)
         log(f"spec: {time.time() - t0:.1f} s")
     if phases & {"full", "long", "spec"}:
-        del params  # the 8B weights make room for Mixtral's
+        del params  # the 8B weights make room for the ring's and Mixtral's
         gc.collect()
         torch.cuda.empty_cache()
+    if "ring" in phases:
+        t0, held = time.time(), torch.cuda.memory_allocated(dev)
+        phase_ring(dev, report)
+        ring_launches = report["ring"]["launches"]  # the world-2 run, by rank
+        for name in ring_launches["rank0"]:
+            report[name]["ring_launches"] = {rank: n[name] for rank, n in ring_launches.items()}
+        gc.collect()
+        log(f"ring: {time.time() - t0:.1f} s; device memory allocated "
+            f"{held / 2 ** 30:.3f} GiB before, {torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} after")
     launches["qgemv_indexed"] = None
     if "moe" in phases:
         t0 = time.time()

@@ -16,7 +16,7 @@ after its layer.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -130,14 +130,41 @@ _OPTIONAL = (("attn_q_norm.weight", "attn_q_norm"), ("attn_k_norm.weight", "attn
 
 
 def load_params(m: GGUFModel, cfg: ModelConfig, device, dtype=torch.bfloat16,
-                fuse: bool = False) -> dict:
+                fuse: bool = False, layer_filter: Callable[[int], bool] | None = None,
+                with_embedding: bool = True, with_output: bool = True) -> dict:
     """Params dict from a GGUF model: the tensor tables of every arch the
     decoder serves (prima_tpu/models/llama.py:163-365). fuse=True
     concatenates Q/K/V and gate/up into wqkv / w_gateup where their quant
     types match and no bias, scale or sub-norm sits between them: fewer
-    GEMV launches, identical numerics."""
-    t = m.tensors
+    GEMV launches, identical numerics.
 
+    Rank-aware loading (a ring rank holds only its own windows):
+    layer_filter(i) False leaves layer i None and reads none of its bytes;
+    with_embedding / with_output load the embedding tables and the output
+    head."""
+    t = m.tensors
+    get = _getter(t, dtype, device)
+    params: dict[str, Any] = {"layers": []}
+    if with_embedding:
+        params["tok_embd"] = get("token_embd.weight")
+        _add_optional(params, t, get, (("position_embd.weight", "pos_embd"),
+                                       ("token_embd_norm.weight", "tok_embd_norm"),
+                                       ("token_embd_norm.bias", "tok_embd_norm_b")))
+    for i in range(cfg.n_layers):
+        if layer_filter is not None and not layer_filter(i):
+            params["layers"].append(None)
+            continue
+        params["layers"].append(_load_layer(m, cfg, i, device, dtype, fuse))
+    if with_output:
+        params["output_norm"] = get("output_norm.weight", dense=True,
+                                    required=cfg.norm_type == "rms")
+        _add_optional(params, t, get, (("output_norm.bias", "output_norm_b"),
+                                       ("output.bias", "output_b")))
+        params["output"] = None if cfg.tie_embeddings else get("output.weight")
+    return params
+
+
+def _getter(t: dict, dtype, device):
     def get(name, dense=False, required=True):
         ti = t.get(name)
         if ti is None:
@@ -145,108 +172,116 @@ def load_params(m: GGUFModel, cfg: ModelConfig, device, dtype=torch.bfloat16,
                 raise KeyError(f"missing tensor {name}")
             return None
         return _to_device_tensor(ti, dtype, device, dense)
+    return get
+
+
+def _add_optional(dst: dict, t: dict, get, table, prefix: str = "") -> None:
+    for name, key in table:
+        if prefix + name in t:
+            dst[key] = get(prefix + name, dense=True)
+
+
+def gguf_host_layer(m: GGUFModel, cfg: ModelConfig, i: int, dtype=torch.bfloat16,
+                    fuse: bool = False) -> dict:
+    """Layer i of a GGUF model in host memory, in the device format the
+    kernels read: what `load_params` puts on the device for that layer, on
+    the CPU (prima_tpu/models/llama.py:706). runtime/streaming.py pins it
+    and streams it to the device."""
+    return _load_layer(m, cfg, i, "cpu", dtype, fuse)
+
+
+def _load_layer(m: GGUFModel, cfg: ModelConfig, i: int, device, dtype, fuse: bool) -> dict:
+    """The params of block i on `device`."""
+    t = m.tensors
+    get = _getter(t, dtype, device)
 
     def first(*names):
         """The first of `names` the file holds, dense, or None."""
         return next((get(n, dense=True) for n in names if n in t), None)
 
-    def add_optional(dst: dict, table, prefix: str = "") -> None:
-        for name, key in table:
-            if prefix + name in t:
-                dst[key] = get(prefix + name, dense=True)
-
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ln = cfg.norm_type != "rms"
-    params: dict[str, Any] = {"tok_embd": get("token_embd.weight"), "layers": []}
-    add_optional(params, (("position_embd.weight", "pos_embd"),
-                          ("token_embd_norm.weight", "tok_embd_norm"),
-                          ("token_embd_norm.bias", "tok_embd_norm_b")))
-    for i in range(cfg.n_layers):
-        p = f"blk.{i}."
-        layer = {
-            # LN archs may omit norm weights (OLMo's non-parametric norm) or
-            # the ffn_norm (command-r's parallel block)
-            "attn_norm": get(p + "attn_norm.weight", dense=True, required=not ln),
-            "wo": get(p + "attn_output.weight"),
-            "ffn_norm": get(p + "ffn_norm.weight", dense=True,
-                            required=not (ln or cfg.parallel_block)),
-        }
-        if layer["ffn_norm"] is None:
-            layer["ffn_norm"] = first(p + "attn_out_norm.weight")  # dbrx's pre-MoE norm
-        if (p + "attn_norm_2.weight") in t:  # falcon-40b: the parallel MLP's own norm
-            layer["ffn_norm"] = get(p + "attn_norm_2.weight", dense=True)
-            add_optional(layer, (("attn_norm_2.bias", "ffn_norm_b"),), p)
-        if (p + "attn_qkv.weight") in t:  # phi3 / openelm: fused qkv, by rows
-            hi = cfg.n_heads_arr[i] if cfg.n_heads_arr else h
-            kvi = cfg.n_kv_heads_arr[i] if cfg.n_kv_heads_arr else kvh
-            nq, nk = hi * hd, kvi * hd
-            layer["wq"], layer["wk"], layer["wv"] = _split_tensor_rows(
-                t[p + "attn_qkv.weight"], dtype, device, [0, nq, nq + nk, nq + 2 * nk])
+    p = f"blk.{i}."
+    layer = {
+        # LN archs may omit norm weights (OLMo's non-parametric norm) or
+        # the ffn_norm (command-r's parallel block)
+        "attn_norm": get(p + "attn_norm.weight", dense=True, required=not ln),
+        "wo": get(p + "attn_output.weight"),
+        "ffn_norm": get(p + "ffn_norm.weight", dense=True,
+                        required=not (ln or cfg.parallel_block)),
+    }
+    if layer["ffn_norm"] is None:
+        layer["ffn_norm"] = first(p + "attn_out_norm.weight")  # dbrx's pre-MoE norm
+    if (p + "attn_norm_2.weight") in t:  # falcon-40b: the parallel MLP's own norm
+        layer["ffn_norm"] = get(p + "attn_norm_2.weight", dense=True)
+        _add_optional(layer, t, get, (("attn_norm_2.bias", "ffn_norm_b"),), p)
+    if (p + "attn_qkv.weight") in t:  # phi3 / openelm: fused qkv, by rows
+        hi = cfg.n_heads_arr[i] if cfg.n_heads_arr else h
+        kvi = cfg.n_kv_heads_arr[i] if cfg.n_kv_heads_arr else kvh
+        nq, nk = hi * hd, kvi * hd
+        layer["wq"], layer["wk"], layer["wv"] = _split_tensor_rows(
+            t[p + "attn_qkv.weight"], dtype, device, [0, nq, nq + nk, nq + 2 * nk])
+    else:
+        qkv = [t[p + n] for n in ("attn_q.weight", "attn_k.weight", "attn_v.weight")]
+        fused = (_fuse_tensor_rows(qkv, device)
+                 if fuse and not (cfg.n_heads_arr or cfg.n_kv_heads_arr) else None)
+        if fused is not None:
+            layer["wqkv"] = fused
         else:
-            qkv = [t[p + n] for n in ("attn_q.weight", "attn_k.weight", "attn_v.weight")]
-            fused = (_fuse_tensor_rows(qkv, device)
-                     if fuse and not (cfg.n_heads_arr or cfg.n_kv_heads_arr) else None)
-            if fused is not None:
-                layer["wqkv"] = fused
-            else:
-                layer["wq"], layer["wk"], layer["wv"] = (
-                    _to_device_tensor(ti, dtype, device) for ti in qkv)
-        if cfg.n_expert and (p + "ffn_gate_inp.weight") in t:
-            # router and stacked experts (Mixtral, qwen2moe, grok, ...)
-            layer["ffn_gate_inp"] = get(p + "ffn_gate_inp.weight", dense=True)
-            for key in ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"):
-                layer[key] = _stack_experts(get(p + key + ".weight"), cfg.n_expert)
-            if (p + "ffn_gate_inp_shexp.weight") in t:  # qwen2moe's shared expert
-                layer["ffn_gate_inp_shexp"] = get(p + "ffn_gate_inp_shexp.weight", dense=True)
-                for key in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"):
-                    layer[key] = get(p + key + ".weight")
-            if cfg.moe_parallel_dense:  # arctic: a dense FFN beside the experts
-                for key, name in (("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
-                                  ("w_down", "ffn_down")):
-                    layer[key] = get(p + name + ".weight", required=False)
-                layer["ffn_norm_exps"] = first(p + "ffn_norm_exps.weight")
-        elif not cfg.ffn_gated:  # starcoder2 and kin: up -> act -> down
-            layer["w_up"] = get(p + "ffn_up.weight")
-            layer["w_down"] = get(p + "ffn_down.weight")
-        elif (p + "ffn_gate.weight") not in t and (p + "ffn_up.weight") in t:
-            # phi3: fused gate+up, rows [0, n_ff) the gate, [n_ff, 2 n_ff) up
-            layer["w_gate"], layer["w_up"] = _split_tensor_rows(
-                t[p + "ffn_up.weight"], dtype, device, [0, cfg.n_ff, 2 * cfg.n_ff])
-            layer["w_down"] = get(p + "ffn_down.weight")
+            layer["wq"], layer["wk"], layer["wv"] = (
+                _to_device_tensor(ti, dtype, device) for ti in qkv)
+    if cfg.n_expert and (p + "ffn_gate_inp.weight") in t:
+        # router and stacked experts (Mixtral, qwen2moe, grok, ...)
+        layer["ffn_gate_inp"] = get(p + "ffn_gate_inp.weight", dense=True)
+        for key in ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"):
+            layer[key] = _stack_experts(get(p + key + ".weight"), cfg.n_expert)
+        if (p + "ffn_gate_inp_shexp.weight") in t:  # qwen2moe's shared expert
+            layer["ffn_gate_inp_shexp"] = get(p + "ffn_gate_inp_shexp.weight", dense=True)
+            for key in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"):
+                layer[key] = get(p + key + ".weight")
+        if cfg.moe_parallel_dense:  # arctic: a dense FFN beside the experts
+            for key, name in (("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
+                              ("w_down", "ffn_down")):
+                layer[key] = get(p + name + ".weight", required=False)
+            layer["ffn_norm_exps"] = first(p + "ffn_norm_exps.weight")
+    elif not cfg.ffn_gated:  # starcoder2 and kin: up -> act -> down
+        layer["w_up"] = get(p + "ffn_up.weight")
+        layer["w_down"] = get(p + "ffn_down.weight")
+    elif (p + "ffn_gate.weight") not in t and (p + "ffn_up.weight") in t:
+        # phi3: fused gate+up, rows [0, n_ff) the gate, [n_ff, 2 n_ff) up
+        layer["w_gate"], layer["w_up"] = _split_tensor_rows(
+            t[p + "ffn_up.weight"], dtype, device, [0, cfg.n_ff, 2 * cfg.n_ff])
+        layer["w_down"] = get(p + "ffn_down.weight")
+    else:
+        gu = [t[p + "ffn_gate.weight"], t[p + "ffn_up.weight"]]
+        fused = None
+        if fuse and not any((p + n) in t for n in (
+                "ffn_gate.bias", "ffn_up.bias", "ffn_gate.scale", "ffn_up.scale",
+                "ffn_down.scale", "ffn_sub_norm.weight")):
+            fused = _fuse_tensor_rows(gu, device)
+        if fused is not None:
+            layer["w_gateup"] = fused
         else:
-            gu = [t[p + "ffn_gate.weight"], t[p + "ffn_up.weight"]]
-            fused = None
-            if fuse and not any((p + n) in t for n in (
-                    "ffn_gate.bias", "ffn_up.bias", "ffn_gate.scale", "ffn_up.scale",
-                    "ffn_down.scale", "ffn_sub_norm.weight")):
-                fused = _fuse_tensor_rows(gu, device)
-            if fused is not None:
-                layer["w_gateup"] = fused
-            else:
-                layer["w_gate"], layer["w_up"] = (
-                    _to_device_tensor(ti, dtype, device) for ti in gu)
-            layer["w_down"] = get(p + "ffn_down.weight")
-        if cfg.post_norms:  # gemma2 / grok, under three names
-            layer["attn_post_norm"] = first(p + "post_attention_norm.weight",
-                                            p + "attn_out_norm.weight")
-            layer["ffn_post_norm"] = first(p + "post_ffw_norm.weight",
-                                           p + "layer_output_norm.weight",
-                                           p + "layer_out_norm.weight")
-        if (p + "attn_qkv.bias") in t:  # phi2: fused qkv bias
-            bqkv = get(p + "attn_qkv.bias", dense=True)
-            nq, nk = h * hd, kvh * hd
-            layer["bq"], layer["bk"], layer["bv"] = (
-                bqkv[:nq], bqkv[nq:nq + nk], bqkv[nq + nk:nq + 2 * nk])
-        elif cfg.qkv_bias or (p + "attn_q.bias") in t:
-            layer["bq"] = get(p + "attn_q.bias", dense=True)
-            layer["bk"] = get(p + "attn_k.bias", dense=True)
-            layer["bv"] = get(p + "attn_v.bias", dense=True)
-        add_optional(layer, _OPTIONAL, p)
-        params["layers"].append(layer)
-    params["output_norm"] = get("output_norm.weight", dense=True, required=not ln)
-    add_optional(params, (("output_norm.bias", "output_norm_b"), ("output.bias", "output_b")))
-    params["output"] = None if cfg.tie_embeddings else get("output.weight")
-    return params
+            layer["w_gate"], layer["w_up"] = (
+                _to_device_tensor(ti, dtype, device) for ti in gu)
+        layer["w_down"] = get(p + "ffn_down.weight")
+    if cfg.post_norms:  # gemma2 / grok, under three names
+        layer["attn_post_norm"] = first(p + "post_attention_norm.weight",
+                                        p + "attn_out_norm.weight")
+        layer["ffn_post_norm"] = first(p + "post_ffw_norm.weight",
+                                       p + "layer_output_norm.weight",
+                                       p + "layer_out_norm.weight")
+    if (p + "attn_qkv.bias") in t:  # phi2: fused qkv bias
+        bqkv = get(p + "attn_qkv.bias", dense=True)
+        nq, nk = h * hd, kvh * hd
+        layer["bq"], layer["bk"], layer["bv"] = (
+            bqkv[:nq], bqkv[nq:nq + nk], bqkv[nq + nk:nq + 2 * nk])
+    elif cfg.qkv_bias or (p + "attn_q.bias") in t:
+        layer["bq"] = get(p + "attn_q.bias", dense=True)
+        layer["bk"] = get(p + "attn_k.bias", dense=True)
+        layer["bv"] = get(p + "attn_v.bias", dense=True)
+    _add_optional(layer, t, get, _OPTIONAL, p)
+    return layer
 
 
 def params_from_numpy(tree, device):
@@ -386,24 +421,37 @@ def synth_params_device(cfg: ModelConfig, ggml_type: GGMLType = GGMLType.Q4_K,
     """Random params generated on `device` from a seeded torch.Generator."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    e, h, kvh, hd, f = cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ff
-
-    def q(rows, k):
-        return synth_qtensor_device(gen, rows, k, ggml_type, device)
-
-    ones = lambda: torch.ones(e, dtype=torch.float32, device=device)
-    params: dict[str, Any] = {"tok_embd": q(cfg.n_vocab, e), "layers": [],
-                              "output_norm": ones()}
-    params["output"] = None if cfg.tie_embeddings else q(cfg.n_vocab, e)
-    for _ in range(cfg.n_layers):
-        layer = {"attn_norm": ones(), "wq": q(h * hd, e), "wk": q(kvh * hd, e),
-                 "wv": q(kvh * hd, e), "wo": q(e, h * hd), "ffn_norm": ones(),
-                 "w_gate": q(f, e), "w_up": q(f, e), "w_down": q(e, f)}
-        if cfg.qkv_bias:
-            for name, n in (("bq", h * hd), ("bk", kvh * hd), ("bv", kvh * hd)):
-                layer[name] = torch.randn(n, generator=gen, device=device) * 0.02
-        params["layers"].append(layer)
+    params: dict[str, Any] = synth_head_device(cfg, gen, ggml_type, device)
+    params["layers"] = [synth_layer_device(cfg, gen, ggml_type, device)
+                        for _ in range(cfg.n_layers)]
     return params
+
+
+def synth_head_device(cfg: ModelConfig, gen: torch.Generator,
+                      ggml_type: GGMLType = GGMLType.Q4_K, device=None) -> dict:
+    """The embedding, output norm and output head, drawn from `gen`."""
+    e = cfg.n_embd
+    head: dict[str, Any] = {"tok_embd": synth_qtensor_device(gen, cfg.n_vocab, e, ggml_type,
+                                                             device),
+                            "output_norm": torch.ones(e, dtype=torch.float32, device=device)}
+    head["output"] = (None if cfg.tie_embeddings
+                      else synth_qtensor_device(gen, cfg.n_vocab, e, ggml_type, device))
+    return head
+
+
+def synth_layer_device(cfg: ModelConfig, gen: torch.Generator,
+                       ggml_type: GGMLType = GGMLType.Q4_K, device=None) -> dict:
+    """One decoder layer's params, drawn from `gen`."""
+    e, h, kvh, hd, f = cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ff
+    q = lambda rows, k: synth_qtensor_device(gen, rows, k, ggml_type, device)
+    ones = lambda: torch.ones(e, dtype=torch.float32, device=device)
+    layer = {"attn_norm": ones(), "wq": q(h * hd, e), "wk": q(kvh * hd, e),
+             "wv": q(kvh * hd, e), "wo": q(e, h * hd), "ffn_norm": ones(),
+             "w_gate": q(f, e), "w_up": q(f, e), "w_down": q(e, f)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * hd), ("bk", kvh * hd), ("bv", kvh * hd)):
+            layer[name] = torch.randn(n, generator=gen, device=device) * 0.02
+    return layer
 
 
 # ---------------------------------------------------------------------------
@@ -679,24 +727,38 @@ def layer_heads(cfg: ModelConfig, i: int) -> tuple[int, int]:
             (cfg.n_kv_heads_arr[i] if cfg.n_kv_heads_arr else cfg.n_kv_heads))
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
             positions: torch.Tensor, kv_caches: list, cache_pos: torch.Tensor,
             opts: ForwardOptions = ForwardOptions(), return_hidden: bool = False,
-            mask_positions: torch.Tensor | None = None):
+            mask_positions: torch.Tensor | None = None,
+            layer_range: tuple[int, int] | None = None,
+            hidden_in: torch.Tensor | None = None):
     """tokens / positions (b, s) int, kv_caches per layer (k, v) of
     (b, T, n_kv, hd), cache_pos (b,) int32 write index on the device.
     Returns (logits (b, s, V), kv_caches) — the caches are updated in place
-    — or the pre-norm hidden states with return_hidden=True."""
-    x = embed(params["tok_embd"], tokens, opts.dtype)
-    if cfg.embd_scale != 1.0:  # gemma: sqrt(n_embd)
-        x = x * float(np.float32(cfg.embd_scale))
-    if params.get("pos_embd") is not None:  # gpt2 / starcoder: learned positions
-        x = x + params["pos_embd"][positions.long()].to(x.dtype)
-    if params.get("tok_embd_norm") is not None:  # bloom
-        x = layer_norm(x, params["tok_embd_norm"], params.get("tok_embd_norm_b"),
-                       cfg.rms_eps)
+    — or the pre-norm hidden states with return_hidden=True.
+
+    layer_range=(lo, hi) runs layers [lo, hi) only, the building block of
+    the ring's windows (prima_tpu/models/llama.py:1196-1238): it takes
+    hidden_in instead of the embedding when lo > 0 and returns the hidden
+    states when hi < n_layers. Only the layers in range (and their caches)
+    need to be present; the others may be None."""
+    lo, hi = layer_range or (0, cfg.n_layers)
+    if lo == 0:
+        x = embed(params["tok_embd"], tokens, opts.dtype)
+        if cfg.embd_scale != 1.0:  # gemma: sqrt(n_embd)
+            x = x * float(np.float32(cfg.embd_scale))
+        if params.get("pos_embd") is not None:  # gpt2 / starcoder: learned positions
+            x = x + params["pos_embd"][positions.long()].to(x.dtype)
+        if params.get("tok_embd_norm") is not None:  # bloom
+            x = layer_norm(x, params["tok_embd_norm"], params.get("tok_embd_norm_b"),
+                           cfg.rms_eps)
+    else:
+        if hidden_in is None:
+            raise ValueError(f"a window starting at layer {lo} needs hidden_in")
+        x = hidden_in
     inv_freq, mscale = rope_freqs(cfg, x.device)
-    t_cache = kv_caches[0][0].shape[1]
+    t_cache = kv_caches[lo][0].shape[1] if hi > lo else 0
     mpos = positions if mask_positions is None else mask_positions
     mask = mask_swa = None
     if not _flash_route(cfg, opts):  # the flash kernels derive visibility themselves
@@ -704,13 +766,23 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 else causal_mask(mpos, t_cache))
         if cfg.swa_window:  # gemma2: a sliding window on even layers
             mask_swa = causal_mask(mpos, t_cache, swa_window=cfg.swa_window)
-    for i, (layer, kv) in enumerate(zip(params["layers"], kv_caches)):
+    for i in range(lo, hi):
+        layer = params["layers"][i]
+        if layer is None:
+            raise ValueError(f"layer {i} is not loaded here")
         m = mask_swa if mask_swa is not None and i % 2 == 0 else mask
         heads = layer_heads(cfg, i) if cfg.n_heads_arr else None
-        x = decode_layer(layer, cfg, x, positions, kv, cache_pos, m, inv_freq, mscale,
-                         opts, mask_positions, heads)
-    if return_hidden:
+        x = decode_layer(layer, cfg, x, positions, kv_caches[i], cache_pos, m, inv_freq,
+                         mscale, opts, mask_positions, heads)
+    if return_hidden or hi < cfg.n_layers:
         return x, kv_caches
+    return lm_head(params, cfg, x, opts), kv_caches
+
+
+def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            opts: ForwardOptions = ForwardOptions()) -> torch.Tensor:
+    """The final norm and the output head over hidden states (b, s, e):
+    logits (b, s, V) in opts.logits_dtype."""
     x = model_norm(x, params.get("output_norm"), params.get("output_norm_b"), cfg)
     if cfg.logit_scale != 1.0:  # minicpm / command-r / granite / grok
         x = x * float(np.float32(cfg.logit_scale))
@@ -721,14 +793,16 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.final_logit_softcap:  # gemma2
         cap = float(np.float32(cfg.final_logit_softcap))
         logits = cap * torch.tanh(logits / cap)
-    return logits, kv_caches
+    return logits
 
 
 def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                   dtype=torch.bfloat16, device=None) -> list:
+                   dtype=torch.bfloat16, device=None,
+                   layer_filter: Callable[[int], bool] | None = None) -> list:
     """Per-layer (k, v) zero buffers (batch, max_seq, kvh, head_dim), kvh
     the layer's own KV heads: dense tensors of a torch dtype, or KVQ8 /
-    KVQ4 for "q8_0" / "q4_0"."""
+    KVQ4 for "q8_0" / "q4_0". A layer for which layer_filter is False gets
+    None (a ring rank caches only its own windows)."""
     if isinstance(dtype, str):
         cls = {"q8_0": KVQ8, "q4_0": KVQ4}.get(dtype)
         if cls is None:
@@ -738,6 +812,9 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int,
         make = lambda shape: torch.zeros(shape, dtype=dtype, device=device)
     caches = []
     for i in range(cfg.n_layers):
+        if layer_filter is not None and not layer_filter(i):
+            caches.append(None)
+            continue
         shape = (batch, max_seq, layer_heads(cfg, i)[1], cfg.head_dim)
         caches.append((make(shape), make(shape)))
     return caches

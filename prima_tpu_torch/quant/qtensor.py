@@ -27,6 +27,8 @@ Bits per weight: Q4_K packed 4.5, Q4_K grouped 4.75, Q4_0 5, Q5_K packed
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -150,9 +152,36 @@ def _dequant_any(qt: QTensor, qs, scales, mins, d, dmin, dtype) -> torch.Tensor:
     return y.to(dtype)
 
 
+_slices = threading.local()
+
+
+@contextlib.contextmanager
+def dequant_slices(weights: int):
+    """Inside the block, `dequant` on this thread works through slices of
+    rows of about `weights` weights each, so its f32 temporaries stay a
+    slice's size; the bits are those of one pass. A device that streams
+    its layers sets it around their forward to bound its memory; every
+    other caller keeps one pass."""
+    prev = getattr(_slices, "weights", None)
+    _slices.weights = weights
+    try:
+        yield
+    finally:
+        _slices.weights = prev
+
+
 def dequant(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
-    """The full weight matrix (N, K) in `dtype`."""
-    return _dequant_any(qt, qt.qs, qt.scales, qt.mins, qt.d, qt.dmin, dtype)
+    """The full weight matrix (N, K) in `dtype`: one pass, or by slices of
+    rows inside `dequant_slices` (every op is elementwise along a row)."""
+    budget = getattr(_slices, "weights", None)
+    rows = qt.n_rows if budget is None else max(1, budget // max(qt.n_cols, 1))
+    if qt.n_rows <= rows:
+        return _dequant_any(qt, qt.qs, qt.scales, qt.mins, qt.d, qt.dmin, dtype)
+    out = torch.empty((qt.n_rows, qt.n_cols), dtype=dtype, device=qt.qs.device)
+    for r0 in range(0, qt.n_rows, rows):
+        part = qt.rows(r0, min(r0 + rows, qt.n_rows))
+        out[r0:r0 + part.n_rows] = _dequant_any(part, *part.tensors(), dtype)
+    return out
 
 
 def dequant_rows(qt: QTensor, row_ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

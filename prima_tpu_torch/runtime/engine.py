@@ -68,6 +68,13 @@ def apply_self_extend(slot, used: int, max_seq: int, ga_n: int, ga_w: int,
     slot.pos_delta = n_past - used
 
 
+def record_positions(slot, pos0: int, n: int, max_seq: int) -> None:
+    """Track the logical position of newly written cells (Self-Extend)."""
+    if slot.pos_map is None:
+        slot.pos_map = np.arange(max_seq, dtype=np.int64)
+    slot.pos_map[pos0:pos0 + n] = pos0 + slot.pos_delta + np.arange(n, dtype=np.int64)
+
+
 class SlotState(Enum):
     IDLE = 0
     PREFILL = 1
@@ -272,12 +279,8 @@ class Engine:
                           self.grp_attn_w, lambda d: self.kv.rope_shift(slot.id, d))
 
     def _record_positions(self, slot: Slot, pos0: int, n: int) -> None:
-        """Track the logical position of newly written cells (Self-Extend)."""
-        if self.grp_attn_n <= 1:
-            return
-        if slot.pos_map is None:
-            slot.pos_map = np.arange(self.max_seq, dtype=np.int64)
-        slot.pos_map[pos0:pos0 + n] = pos0 + slot.pos_delta + np.arange(n, dtype=np.int64)
+        if self.grp_attn_n > 1:
+            record_positions(slot, pos0, n, self.max_seq)
 
     def _advance_prefill(self, slot: Slot) -> None:
         """Ingest one chunk of prompt[:-1] into the slot's cache row."""

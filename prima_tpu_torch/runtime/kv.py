@@ -10,6 +10,10 @@ K is cached after RoPE, so moving a cell by d positions re-rotates its K
 by d (rope(p) -> rope(p + d) composes additively). A quantized K row is
 materialized to bf16, rotated and requantized, as the JAX package does,
 so the codes match it.
+
+On a ring rank the caches of layers that another rank owns are None
+(init_kv_caches' layer_filter), and every sequence op skips them; the ring
+replicates each op to every rank, which applies it to its own layers.
 """
 
 from __future__ import annotations
@@ -76,6 +80,11 @@ class KVCache:
             self.cache_pos = np.zeros(self.n_slots, dtype=np.int32)
         self._inv_freq, _ = rope_freqs(self.cfg, self.device)
 
+    def _owned(self) -> list:
+        """The (k, v) caches of the layers held here: on a ring rank the
+        other layers' entries are None, and every op skips them."""
+        return [kv for kv in self.caches if kv is not None]
+
     def _index(self, a: np.ndarray, dtype=np.int64) -> torch.Tensor:
         return torch.from_numpy(a.astype(dtype)).to(self._inv_freq.device)
 
@@ -92,7 +101,7 @@ class KVCache:
             self.cache_pos[slot] = max(p0, 0)
 
     def seq_cp(self, dst: int, src: int) -> None:
-        for k, v in self.caches:
+        for k, v in self._owned():
             for a in _parts(k) + _parts(v):
                 a[dst].copy_(a[src])
         self.cache_pos[dst] = self.cache_pos[src]
@@ -109,7 +118,7 @@ class KVCache:
         and scales of a quantized cache) moves as it is."""
         idx = self._index(np.minimum(src, self.max_seq - 1))
         d = self._index(delta, np.int32)
-        for k, v in self.caches:
+        for k, v in self._owned():
             set_row(k, slot, rope_delta(materialize_row(k, slot)[idx], d,
                                         self._inv_freq, self.cfg.rope_type))
             for a in _parts(v):
@@ -151,7 +160,7 @@ class KVCache:
         if not np.any(delta):
             return
         d = self._index(delta, np.int32)
-        for k, _ in self.caches:
+        for k, _ in self._owned():
             set_row(k, slot, rope_delta(materialize_row(k, slot), d, self._inv_freq,
                                         self.cfg.rope_type))
 

@@ -2,15 +2,19 @@
 
 Counterpart of prima_tpu/server/__main__.py on one device (CUDA unless
 --device cpu), with LoRA adapters (--lora, --lora-scaled) and speculative
-decoding with a draft model (-md). Options of the JAX server that this
-port does not carry yet (the distributed ones) raise a "not yet ported"
-error instead of being ignored.
+decoding with a draft model (-md). With -w > 1 it serves over the TCP
+ring: every rank runs the command with its --rank, rank 0 answers HTTP
+over a TcpRingEngine and the others serve their windows (-lw, -k, -ngl as
+in the CLI). The mesh options of the JAX server (--pp / --tp / --dp) are
+not carried yet and raise a "not yet ported" error instead of being
+ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 import sys
 
 
@@ -83,7 +87,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("-w", "--world", type=int, default=1)
+    ap.add_argument("-k", "--n-cycles", type=int, default=0,
+                    help="piped-ring cycles per token (0 = solver-chosen)")
+    # multi-process (TCP ring) mode: one server process per rank, rank 0
+    # serves HTTP (the reference's llama-server -w/--rank flow)
+    ap.add_argument("-w", "--world", type=int, default=int(env("WORLD", 1)),
+                    help="TCP ring size (1 = no ring)")
+    ap.add_argument("--rank", type=int, default=int(env("RANK", 0)))
+    ap.add_argument("-mip", "--master-ip", default="127.0.0.1")
+    ap.add_argument("-nip", "--next-ip", default="127.0.0.1")
+    ap.add_argument("--data-port", type=int, default=9337)
+    ap.add_argument("-lw", "--n-layer-window", default=None,
+                    help="CSV layer windows per rank (manual mode)")
+    ap.add_argument("-ngl", "--n-gpu-layers", type=int, default=-1,
+                    help="ring mode: device-resident layers per window, the rest "
+                         "stream from host memory (default: the scheduler's n[m])")
     from ..utils.args import apply_env_defaults
 
     apply_env_defaults(ap)  # PRIMA_ARG_* / LLAMA_ARG_* fallbacks
@@ -92,11 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """The first requested option this port does not carry yet."""
-    checks = [
-        (args.pp * args.tp * args.dp > 1, "--pp / --tp / --dp"),
-        (args.world > 1, "-w / --world"),
-    ]
-    return next((what for bad, what in checks if bad), None)
+    if args.pp * args.tp * args.dp > 1:
+        return "--pp / --tp / --dp"
+    return None
 
 
 def main(argv=None) -> int:
@@ -105,6 +121,9 @@ def main(argv=None) -> int:
     if what is not None:
         print(f"{what} is not yet ported to prima_tpu_torch", file=sys.stderr)
         return 2
+
+    if args.world > 1:
+        return _ring_main(args)
 
     import torch
 
@@ -170,6 +189,87 @@ def main(argv=None) -> int:
     finally:
         _ctx.worker.shutdown()
         httpd.server_close()
+    return 0
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def _ring_main(args) -> int:
+    """Multi-process serving (prima_tpu/server/__main__.py:257-333): rank 0
+    is the HTTP server over a TcpRingEngine, the other ranks run the
+    batched window service loop (llama-server as the rank-0 command of a
+    prima.cpp ring, server.cpp:2431)."""
+    from ..models.loader import LoadedModel
+    from ..parallel.ring_tcp import TcpRingEngine, TcpRingWorker, default_groups
+    from ..tokenizer import Tokenizer
+    from ..tools.cli_distributed import setup_ring
+    from .app import serve
+
+    if args.lora or args.lora_scaled:
+        print("--lora is not supported over the ring", file=sys.stderr)
+        return 1
+    n_slots = max(1, args.parallel)
+    n_groups = default_groups(args.world, n_slots)
+    # the shared bootstrap: ring connect, auto schedule when -lw is absent,
+    # rank-filtered load, resident/streamed split, relays
+    rt = setup_ring(args)
+    if rt is None:
+        return 0
+    if rt.res.rank != 0:
+        print(f"rank {rt.res.rank}: serving ring windows {sorted(rt.owned)}",
+              file=sys.stderr)
+        TcpRingWorker(rt.ctx, rt.cfg, rt.params, max_seq=args.ctx_size, opts=rt.opts,
+                      n_slots=n_slots, n_groups=n_groups, kv_dtype=rt.kv_dtype,
+                      streamed_host=rt.streamed_host, device=rt.device).serve()
+        rt.node.close()
+        return 0
+
+    model = LoadedModel(rt.cfg, rt.params, Tokenizer.from_gguf(rt.m), rt.m)
+    # a failure before serving must still send STOP, or the workers wait on
+    try:
+        engine = TcpRingEngine(rt.ctx, rt.cfg, rt.params, n_slots=n_slots,
+                               n_groups=n_groups, max_seq=args.ctx_size,
+                               n_batch=args.batch_size, opts=rt.opts, eog_ids=model.eog_ids,
+                               kv_dtype=rt.kv_dtype,
+                               ctx_shift=not args.no_context_shift and args.grp_attn_n == 1,
+                               n_keep=args.keep, grp_attn_n=args.grp_attn_n,
+                               grp_attn_w=args.grp_attn_w, streamed_host=rt.streamed_host,
+                               device=rt.device)
+        spec = None
+        if args.model_draft:
+            # speculative serving over the ring: the draft whole on rank 0,
+            # the target verified across the ring (server.cpp:715-733)
+            from ..models.loader import load_model
+            from ..runtime.engine import Engine
+            from ..runtime.speculative import SpeculativeDecoder
+
+            dmodel = load_model(args.model_draft, device=rt.device)
+            deng = Engine(dmodel.cfg, dmodel.params, n_slots=engine.n_slots,
+                          max_seq=args.ctx_size, opts=rt.opts, eog_ids=dmodel.eog_ids,
+                          device=rt.device)
+            spec = SpeculativeDecoder(engine, deng, n_draft=args.draft_max,
+                                      p_min=args.draft_p_min)
+        httpd, _ctx = serve(model, engine, args.host, args.port, args.alias, spec=spec,
+                            api_keys=_load_api_keys(args))
+    except BaseException:
+        rt.node.send_stop()
+        rt.node.close()
+        raise
+    print(f"listening on http://{args.host}:{args.port} (ring world={args.world})",
+          file=sys.stderr, flush=True)
+    # SIGTERM ends the server as Ctrl-C does, so STOP still goes round the ring
+    signal.signal(signal.SIGTERM, _interrupt)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        _ctx.worker.shutdown()
+        httpd.server_close()
+        engine.stop()
+        rt.node.close()
     return 0
 
 

@@ -11,8 +11,14 @@ names with LLAMA_ARG_* environment fallbacks.
 
     python -m prima_tpu_torch.tools.cli -m model.gguf -p "Hello" -n 32
 
+With -w > 1 each rank runs this command with its --rank, and the ranks
+form the TCP ring (tools/cli_distributed.py): -lw sets the layer windows
+by hand (else every rank profiles its device and rank 0 solves them), -k
+the cycles, -ngl the resident layers of each window (the rest stream from
+host memory; on one process -ngl runs the one-rank ring).
+
 Not yet ported (exit status 2): the t5, rwkv6, deepseek2 / minicpm3 and
-mamba runtimes, the distributed ring (-w > 1) and layer streaming (-ngl).
+mamba runtimes.
 """
 
 from __future__ import annotations
@@ -67,10 +73,22 @@ def build_parser() -> argparse.ArgumentParser:
                     "start, save on exit (main.cpp:268-288)")
     ap.add_argument("--prompt-cache-ro", action="store_true",
                     help="use the prompt cache read-only (no save on exit)")
-    # the distributed ring and layer streaming are not yet ported: these two
-    # exit with status 2 (the ring's other flags are not taken)
+    # the distributed ring (the reference's -w/-r/-lw/-k/--master/--next flags)
     ap.add_argument("-w", "--world", type=int, default=int(env("WORLD", 1)))
-    ap.add_argument("-ngl", "--n-gpu-layers", type=int, default=-1)
+    ap.add_argument("--rank", type=int, default=int(env("RANK", 0)))
+    ap.add_argument("-mip", "--master-ip", default=env("MASTER_IP", "127.0.0.1"))
+    ap.add_argument("-nip", "--next-ip", default=env("NEXT_IP", "127.0.0.1"))
+    ap.add_argument("--data-port", type=int, default=int(env("DATA_PORT", 9000)))
+    ap.add_argument("-lw", "--n-layer-window", default=env("LAYER_WINDOW"),
+                    help="manual CSV windows, e.g. 16,8,8 (skips the solver)")
+    ap.add_argument("-k", "--n-cycles", type=int, default=0)
+    ap.add_argument("-ngl", "--n-gpu-layers", type=int, default=-1,
+                    help="device-resident layers per window; the rest stream from "
+                         "host memory each cycle (default: the scheduler's n[m])")
+    ap.add_argument("--master-priority", type=float, default=1.01)
+    ap.add_argument("--topo-grace", type=float, default=0.0,
+                    help="topology-rebuild registration window (seconds): route the "
+                         "ring around ranks that never show up; 0 = strict ring")
     # RoPE overrides on top of the GGUF metadata (0 / -1 mean "from model")
     ap.add_argument("--rope-scaling", choices=["none", "linear", "yarn"], default=None)
     ap.add_argument("--rope-freq-base", type=float, default=0.0)
@@ -159,8 +177,9 @@ def _stream_generate(eng, model, sampler, prompt_tokens, n_predict, reverse: lis
     slot = eng.submit(prompt_tokens, sampler=sampler, n_predict=n_predict)
     buf = b""
     text_out = ""
+    step = (lambda: eng.step_fused(max_chunk=8)) if hasattr(eng, "step_fused") else eng.step
     while slot.state != SlotState.IDLE:
-        for ev in eng.step_fused(max_chunk=8):
+        for ev in step():
             if ev.token is None:
                 continue
             buf += model.tokenizer.decode_token_bytes(ev.token)
@@ -202,11 +221,6 @@ def main(argv=None) -> int:
     apply_env_defaults(parser)  # PRIMA_ARG_* / LLAMA_ARG_* fallbacks
     args = parser.parse_args(argv)
 
-    if args.world > 1 or args.n_gpu_layers >= 0:
-        what = "-w / --world" if args.world > 1 else "-ngl / --n-gpu-layers"
-        print(f"{what} is not yet ported to prima_tpu_torch", file=sys.stderr)
-        return 2
-
     from ..gguf.reader import GGUFModel
 
     probe = GGUFModel.open(args.model)
@@ -216,6 +230,12 @@ def main(argv=None) -> int:
         print(f"the {probe_arch} runtime is not yet ported to prima_tpu_torch",
               file=sys.stderr)
         return 2
+    if args.world > 1 or args.n_gpu_layers >= 0:
+        # -ngl on one process runs the one-rank ring: the window streamer
+        # serves models larger than the device's memory
+        from .cli_distributed import run_distributed
+
+        return run_distributed(args, _read_prompt(args))
 
     import torch
 

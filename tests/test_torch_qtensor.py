@@ -100,3 +100,27 @@ def test_params_from_numpy_kperm_narrow_q4_k():
     assert jqt.kperm and not jqt.packed
     qt = params_from_numpy(jqt_to_dict(jqt), "cpu")
     assert np.array_equal(dequant(qt).numpy(), np.asarray(jdequant(jqt)))
+
+
+@pytest.mark.parametrize("fmt", ["Q4_K", "Q8_0", "Q6_K", "Q4_0", "Q5_K"])
+def test_dequant_by_row_slices_equals_one_pass(fmt, monkeypatch):
+    """Inside dequant_slices, dequant() works through slices of rows to
+    bound its temporaries, with the bits of one pass over the whole
+    matrix; outside it, dequant() is one pass."""
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.llama import synth_qtensor_device
+    from prima_tpu_torch.quant import qtensor as qtm
+
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    qt = synth_qtensor_device(gen, 300, 512, GGMLType[fmt], "cpu")
+    passes = []
+    one_pass = qtm._dequant_any
+    monkeypatch.setattr(qtm, "_dequant_any", lambda *a: passes.append(1) or one_pass(*a))
+    with qtm.dequant_slices(512 * 7):  # 7 rows a slice, a ragged last
+        sliced = [qtm.dequant(qt, dt) for dt in (torch.float32, torch.bfloat16)]
+    assert len(passes) == 2 * 43
+    passes.clear()
+    whole = [qtm.dequant(qt, dt) for dt in (torch.float32, torch.bfloat16)]
+    assert len(passes) == 2
+    assert all(torch.equal(a, b) for a, b in zip(sliced, whole))

@@ -151,6 +151,6 @@ def test_long_context_options_are_accepted():
 
 
 def test_unported_options_exit_with_error(capsys):
-    for flags in (["--pp", "2"], ["--tp", "2"], ["-w", "2"]):
+    for flags in (["--pp", "2"], ["--tp", "2"]):
         assert server_main(["-m", PAIR, "--device", "cpu", *flags]) == 2
         assert "not yet ported" in capsys.readouterr().err
