@@ -107,6 +107,27 @@ Phases, each of which fails the run on any error or mismatch:
                launches at those ids; one decode step's logits, every
                kernel vs plain. The served decode and the logits check
                must each reach more than 2 distinct experts a launch.
+  9. tools   — this slice's paths, each with the kernel counts set to 0
+               just before and read just after: bench_tool --synth 8b -p 512
+               -n 128 -b 1,4 -r 3 -o json through its main (pp and tg tok/s,
+               qgemv and kv_store launches); on the 8B shape (Q4_K, one slot,
+               max_seq 1024, a 128-token prompt of a 16-token pattern),
+               LookupDecoder with 8 drafts (64 tokens) and LookaheadDecoder
+               at W = 15, N = 5, G = 15 (S = 120 rows a step, 32 tokens): in
+               f32 both give plain greedy's stream, and each accepted lookup
+               position's verify logits are within 1e-3 * max |logit| of
+               incremental decode; in bf16 their drafts, acceptance, tok/s,
+               verify or step ms and the device's idle share; over a q8_0
+               cache every lookahead commit copies codes and scales bit for
+               bit; two seeded perplexity chunks of 512 through the port's
+               chunk_logp, --matmul kernel vs plain within 1e-3 relative
+               (f32) and 1e-2 (bf16); then the tools on the tiny pair in
+               f32, the card against --device cpu (simple, batched,
+               parallel, speculative -md, save_load_state, passkey, lookup
+               create and run, lookahead, perplexity and its KL divergence
+               against the base file the run wrote, gritlm): equal exit codes
+               and stdout, gritlm embeddings at cosine >= 0.9999;
+               batched_bench and profile_tool run and exit 0.
 The decoder writes K and V through the fused KV store; the byte-generic KV
 write runs where a saved slot is restored, so its launches are the server's
 (phase 3). The device-memory probe is on no serving path: its launches are
@@ -2851,11 +2872,519 @@ def phase_ring(dev, report: dict) -> None:
     report["ring"] = r
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the masked forward, lookup and lookahead decoding, and the tools
+# ---------------------------------------------------------------------------
+
+TOOLS_PROMPT = 128  # a 128-token prompt: a 16-token pattern, 8 times
+PPL_TOL = {"f32": 1e-3, "bf16": 1e-2}  # relative, kernels vs plain
+
+
+def tool_call(main, args: list) -> tuple[int, str, str]:
+    """A tool's main(args) in this process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(args)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def zero_counts() -> dict:
+    """Every kernel counter of the model's paths, each set to 0."""
+    from prima_tpu_torch.ops import kv_write as kvw
+    from prima_tpu_torch.quant import qmatmul as qm
+
+    counters = dict(kernel_counts(), kv_write=kvw.launches, qgemv_indexed=qm.indexed_launches)
+    for c in counters.values():
+        c.count = 0
+    return counters
+
+
+def read_counts(counters: dict) -> dict:
+    return {k: c.count for k, c in counters.items() if c.count}
+
+
+def tools_bench() -> dict:
+    """bench_tool --synth 8b -p 512 -n 128 -b 1,4 -r 3 -o json through its
+    main, the launch counts of that run."""
+    import torch
+
+    from prima_tpu_torch.tools import bench_tool
+
+    counters = zero_counts()
+    t0 = time.time()
+    rc, out, err = tool_call(bench_tool.main, ["--synth", "8b", "-p", "512", "-n", "128",
+                                               "-b", "1,4", "-r", "3", "-o", "json"])
+    wall = time.time() - t0
+    launches = read_counts(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rc != 0:
+        raise AssertionError(f"bench_tool exited {rc}: {err[-2000:]}")
+    rows = json.loads(out)
+    got = {(r["test"], r["n_batch"]): r for r in rows}
+    if sorted(got) != [("pp512", 1), ("pp512", 4), ("tg128", 1), ("tg128", 4)]:
+        raise AssertionError(f"bench_tool rows {sorted(got)}")
+    for r in rows:
+        if not (r["avg_ts"] > 0 and r["backend"] == torch.cuda.get_device_name(0)):
+            raise AssertionError(f"bench_tool row {r}")
+    if not (launches.get("qgemv") and launches.get("kv_store")):
+        raise AssertionError(f"bench_tool ran without qgemv or kv_store: {launches}")
+    res = {"rows": [{k: r[k] for k in ("test", "n_batch", "avg_ts", "stddev_ts", "max_ts",
+                                       "size_gib", "backend")} for r in rows],
+           "wall_s": wall, "launches": launches}
+    for r in res["rows"]:
+        log(f"bench_tool {r['test']} b={r['n_batch']}: {r['avg_ts']:.2f} "
+            f"± {r['stddev_ts']:.2f} tok/s")
+    log(f"bench_tool: {wall:.1f} s, launches {launches}")
+    return res
+
+
+def tools_engine(cfg, params, dev, dtype):
+    """The decoders' engine: one slot, max_seq 1024, activations and KV in
+    `dtype` (a torch dtype, or "q8_0" for a q8_0 cache under bf16)."""
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.runtime.engine import Engine
+
+    act = torch.bfloat16 if isinstance(dtype, str) else dtype
+    return Engine(cfg, params, n_slots=1, max_seq=1024, device=dev, kv_dtype=dtype,
+                  opts=ForwardOptions(dtype=act))
+
+
+def plain_greedy(cfg, params, dev, prompt: list, n: int) -> tuple[list, list]:
+    """Plain greedy in f32 and each step's logits (host numpy)."""
+    import torch
+
+    eng = tools_engine(cfg, params, dev, torch.float32)
+    steps, real = [], eng._decode_raw
+
+    def record(*a):
+        logits, caches = real(*a)
+        steps.append(logits[0].float().cpu().numpy())
+        return logits, caches
+
+    eng._decode_raw = record
+    toks = eng.run_to_completion(prompt, n_predict=n)
+    free(eng)
+    return toks, steps
+
+
+def profiled_wall(run) -> dict:
+    """run() -> (tokens, ...) once timed on the host (ending in a
+    synchronize), with every kernel count set to 0 just before and read
+    just after, then again under torch.profiler: wall ms, the launches,
+    device busy ms, and the idle share of the device over the unprofiled
+    wall time. run() must do the same work both times (greedy decoding on
+    a fresh engine)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    first = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(counters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = run()
+        torch.cuda.synchronize()
+    by, top = device_ms(prof)
+    busy = sum(by.values())
+    return {"result": first, "same_tokens_profiled": first[0] == second[0], "wall_ms": wall,
+            "launches": launches, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall, "device_ms": by, "top_kernels_ms": top}
+
+
+def tools_lookup(cfg, params, dev, prompt: list, plain: tuple) -> dict:
+    """LookupDecoder, 8 drafts a verify, 64 tokens: in f32 the plain greedy
+    stream, each accepted position's verify logits within LOGITS_TOL *
+    max |logit| of incremental decode; in bf16 the drafts, acceptance,
+    tok/s, verify wall ms by chain length, device idle share."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.runtime.ngram_cache import LookupDecoder
+
+    want, steps = plain
+    t = tools_engine(cfg, params, dev, torch.float32)
+    chains, pos0s, verify = [], [], t.verify_chain
+
+    def record(sid, chain):
+        pos0s.append(t.kv.used(sid))
+        chains.append(verify(sid, chain))
+        return chains[-1]
+
+    t.verify_chain = record
+    got, stats = LookupDecoder(t, n_draft=8).generate(prompt, n_predict=64)
+    free(t)
+    accepted = [b - a for a, b in zip(pos0s, pos0s[1:])]
+    accepted.append(len(got) - sum(accepted))
+    n, worst = 0, 0.0
+    for logits, k in zip(chains, accepted):
+        for j in range(k):
+            ref = steps[n + j]
+            worst = max(worst, float(np.abs(logits[j] - ref).max() / np.abs(ref).max()))
+        n += k
+    out = {"f32": {"tokens": 64, "equal_plain": got == want, "stats": vars(stats),
+                   "verify_logits_max_rel_err": worst,
+                   "tolerance": f"max|verify - incremental| <= {LOGITS_TOL} * max|logit|"}}
+    log("lookup (f32)", json.dumps(out["f32"]))
+    if got != want:
+        raise AssertionError(f"lookup greedy stream differs: {got} vs plain {want}")
+    if not worst <= LOGITS_TOL:
+        raise AssertionError(f"lookup verify logits {worst} of max |logit| from incremental")
+
+    engines = []
+
+    def run():
+        t = tools_engine(cfg, params, dev, torch.bfloat16)
+        engines.append(t)
+        verify, walls = t.verify_chain, {}
+
+        def timed(sid, chain):
+            t0 = time.perf_counter()
+            logits = verify(sid, chain)  # ends in a copy to the host
+            walls.setdefault(len(chain), []).append((time.perf_counter() - t0) * 1e3)
+            return logits
+
+        t.verify_chain = timed
+        toks, st = LookupDecoder(t, n_draft=8).generate(prompt, n_predict=64)
+        free(t)
+        return toks, vars(st), walls
+
+    run()  # warm-up, not counted
+    prof = profiled_wall(run)
+    toks, st, walls = prof.pop("result")
+    launches = prof["launches"]
+    bf16 = dict(prof, tokens=len(toks), stats=st, tok_s=len(toks) / prof["wall_ms"] * 1e3,
+                verify_wall_ms_by_chain={n: statistics.median(v) for n, v in sorted(walls.items())},
+                verify_calls_by_chain={n: len(v) for n, v in sorted(walls.items())})
+    out["bf16"] = bf16
+    log("lookup (bf16)", json.dumps({k: v for k, v in bf16.items() if k != "top_kernels_ms"}))
+    if not (launches.get("qgemv") and launches.get("kv_store")):
+        raise AssertionError(f"lookup ran without qgemv or kv_store: {launches}")
+    return out
+
+
+def tools_lookahead(cfg, params, dev, prompt: list, plain: tuple) -> dict:
+    """LookaheadDecoder at W = 15, N = 5, G = 15 (S = 120), 32 tokens: in
+    f32 the plain greedy stream; in bf16 tokens a step, wall and device ms
+    a step, idle share; over a q8_0 cache each commit leaves the
+    destination rows' codes and scales equal to the source rows', and one
+    more commit is checked directly on the last step's scratch rows."""
+    import torch
+
+    from prima_tpu_torch.runtime.kv import _parts
+    from prima_tpu_torch.runtime.lookahead import LookaheadDecoder
+
+    want = plain[0][:32]
+    t = tools_engine(cfg, params, dev, torch.float32)
+    la = LookaheadDecoder(t)
+    got, stats = la.generate(prompt, n_predict=32)
+    free(t)
+    out = {"S": la.S, "f32": {"tokens": 32, "equal_plain": got == want, "stats": vars(stats)}}
+    log("lookahead (f32)", json.dumps(out["f32"]))
+    if la.S != 120 or got != want:
+        raise AssertionError(f"lookahead S {la.S}, stream {got} vs plain {want}")
+
+    def run():
+        t = tools_engine(cfg, params, dev, torch.bfloat16)
+        toks, st = LookaheadDecoder(t).generate(prompt, n_predict=32)
+        free(t)
+        return toks, vars(st)
+
+    run()  # warm-up, not counted
+    prof = profiled_wall(run)
+    toks, st = prof.pop("result")
+    launches = prof["launches"]
+    steps = st["n_steps"]
+    bf16 = dict(prof, tokens=len(toks), stats=st, tokens_per_step=st["n_predict"] / steps,
+                step_wall_ms=prof["wall_ms"] / steps,
+                step_device_ms=prof["device_busy_ms"] / steps)
+    out["bf16"] = bf16
+    log("lookahead (bf16)", json.dumps({k: v for k, v in bf16.items()
+                                        if k != "top_kernels_ms"}))
+    if not launches.get("kv_store"):
+        raise AssertionError(f"lookahead ran without kv_store: {launches}")
+
+    # q8_0: every commit a bit-for-bit copy of codes and scales
+    t = tools_engine(cfg, params, dev, "q8_0")
+    la = LookaheadDecoder(t)
+    checked, real = [], la._commit
+
+    def rows(lo: int) -> list:
+        return [a[0, lo:lo + la.N - 1].clone() for k, v in t.kv.caches
+                for a in _parts(k) + _parts(v)]
+
+    def check(slot, src0, dst0):
+        src = rows(src0)
+        real(slot, src0, dst0)
+        checked.append((src0, dst0, all(torch.equal(a, b) for a, b in zip(rows(dst0), src))))
+
+    pos0s, step = [], la._step
+    la._step = lambda tokens, pos0, slot: pos0s.append(pos0) or step(tokens, pos0, slot)
+    la._commit = check
+    toks_q8, st_q8 = la.generate(prompt, n_predict=32)
+    # the last step's scratch rows are still in the cache: n-gram 3's rows
+    # onto the tail, as a commit that accepted it would copy them
+    check(0, pos0s[-1] + la.v0 + 3 * (la.N - 1), pos0s[-1] + 1)
+    free(t)
+    out["q8_0"] = {"stats": vars(st_q8), "commits_checked": len(checked),
+                   "commits_in_run": len(checked) - 1,
+                   "codes_and_scales_equal": all(c[2] for c in checked)}
+    log("lookahead (q8_0 cache)", json.dumps(out["q8_0"]))
+    if not all(c[2] for c in checked):
+        raise AssertionError(f"a lookahead commit over q8_0 changed codes or scales: {checked}")
+    return out
+
+
+def tools_perplexity(cfg, params, dev) -> dict:
+    """Two seeded chunks of n_ctx 512 through the port's chunk_logp, the
+    second half of each scored as the tool does, --matmul kernel against
+    --matmul plain, in f32 and in bf16; ms a chunk on the host clock."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.tools.perplexity import chunk_logp
+
+    n_ctx = 512
+    rng = np.random.default_rng(7)
+    chunks = [torch.as_tensor(rng.integers(0, cfg.n_vocab, n_ctx), device=dev)
+              for _ in range(2)]
+    out: dict = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        res = {}
+        for impl in ("kernel", "plain"):
+            opts = ForwardOptions(matmul_impl=impl, dtype=dtype)
+            chunk_logp(params, cfg, chunks[0], opts)  # warm-up
+            counters = zero_counts()
+            nll, ms = 0.0, []
+            for c in chunks:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logp = chunk_logp(params, cfg, c, opts)
+                nxt = logp[torch.arange(n_ctx - 1, device=dev), c[1:]]
+                nll -= float(nxt[n_ctx // 2:].sum())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res[impl] = {"ppl": math.exp(nll / (2 * (n_ctx - 1 - n_ctx // 2))),
+                         "ms_per_chunk": ms, "launches": read_counts(counters)}
+        rel = abs(res["kernel"]["ppl"] - res["plain"]["ppl"]) / res["plain"]["ppl"]
+        out[name] = dict(res, rel_diff=rel, tolerance=f"relative <= {PPL_TOL[name]}")
+        log(f"perplexity 8B ({name}): kernel {res['kernel']['ppl']:.6f} plain "
+            f"{res['plain']['ppl']:.6f} (rel {rel:.2e}), ms a chunk "
+            f"{[round(x, 1) for x in res['kernel']['ms_per_chunk']]} / plain "
+            f"{[round(x, 1) for x in res['plain']['ms_per_chunk']]}, launches "
+            f"{res['kernel']['launches']}")
+        if not (math.isfinite(res["kernel"]["ppl"]) and rel <= PPL_TOL[name]):
+            raise AssertionError(f"perplexity {name}: kernels {res['kernel']['ppl']} vs plain "
+                                 f"{res['plain']['ppl']}")
+        if not res["kernel"]["launches"].get("kv_store"):
+            raise AssertionError(f"perplexity ran without kv_store: {res['kernel']}")
+    return out
+
+
+def f32_defaults():
+    """The tools' forwards in f32, for the card against the CPU: every
+    ForwardOptions they build defaults to f32 activations, and every bf16
+    cache they ask for is f32 (the tools have no dtype flags)."""
+    import contextlib
+    import functools
+
+    import torch
+
+    from prima_tpu_torch.models import llama
+    from prima_tpu_torch.runtime import kv
+
+    opts, init = llama.ForwardOptions, llama.init_kv_caches
+
+    def init_f32(cfg, batch, max_seq, dtype=torch.bfloat16, *a, **kw):
+        return init(cfg, batch, max_seq, torch.float32 if dtype == torch.bfloat16 else dtype,
+                    *a, **kw)
+
+    @contextlib.contextmanager
+    def patched():
+        llama.ForwardOptions = functools.partial(opts, dtype=torch.float32)
+        llama.init_kv_caches = kv.init_kv_caches = init_f32
+        try:
+            yield
+        finally:
+            llama.ForwardOptions, llama.init_kv_caches, kv.init_kv_caches = opts, init, init
+
+    return patched()
+
+
+def tiny_tool_runs(device: str, work: str) -> dict:
+    """The tools on the tiny pair on `device`: {name: (exit code, the
+    deterministic stdout)}; files go under `work`."""
+    import re
+
+    from prima_tpu_torch.tools import (batched, batched_bench, gritlm, lookahead, lookup,
+                                       parallel, passkey, perplexity, profile_tool,
+                                       save_load_state, simple, speculative)
+
+    d = ["--device", device]
+    corpus = os.path.join(work, "corpus.txt")
+    with open(corpus, "w") as f:
+        f.write("Once upon a time there was a little fox. The fox ran to the river. "
+                "Once upon a time there was a little bird. The bird flew to the river. " * 6)
+    static = os.path.join(work, f"static.{device}")
+    base = os.path.join(work, f"base.{device}.logits")
+    runs = [
+        ("simple", simple.main, ["-m", TINY, "-p", "Once upon a time", "-n", "24"]),
+        ("batched", batched.main, ["-m", TINY, "-p", "The quick brown fox", "-np", "3",
+                                   "-n", "16", "--temp", "0", "-c", "256"]),
+        ("parallel", parallel.main, ["-m", TINY, "-np", "2", "-ns", "4", "-n", "16",
+                                     "-c", "256"]),
+        ("speculative", speculative.main, ["-m", TINY, "-md", DRAFT, "-p", "Once upon a time",
+                                           "-n", "32", "-c", "256"]),
+        ("save_load_state", save_load_state.main, ["-m", TINY, "-p", "Once upon a time",
+                                                   "-n", "16", "--temp", "0"]),
+        ("passkey", passkey.main, ["-m", TINY, "--junk", "2", "--pos", "1", "-s", "3",
+                                   "-c", "1024", "-n", "8"]),
+        ("lookup_create", lookup.main, ["create", "-m", TINY, "-f", corpus, "-o", static]),
+        ("lookup_run", lookup.main, ["run", "-m", TINY, "-p", "Once upon a time there was",
+                                     "-n", "32", "-lcs", static]),
+        ("lookahead", lookahead.main, ["-m", TINY, "-p", "Once upon a time", "-n", "24",
+                                       "--temp", "0"]),
+        ("perplexity", perplexity.main, ["-m", TINY, "-f", corpus, "-c", "128",
+                                         "--logits-file", base]),
+        ("kl_divergence", perplexity.main, ["-m", TINY, "-f", corpus, "--kl-divergence",
+                                            "--logits-file", base]),
+        ("gritlm_generate", gritlm.main, ["-m", TINY, "--mode", "generate", "-p",
+                                          "Once upon a time", "-n", "24"]),
+        ("batched_bench", batched_bench.main, ["-m", TINY, "-npp", "32", "-ntg", "8",
+                                               "-npl", "1,2", "-c", "128"]),
+        ("profile_tool", profile_tool.main, ["-m", TINY, "--no-disk"]),
+    ]
+    out = {}
+    for name, main, args in runs:
+        rc, text, err = tool_call(main, args + d)
+        if name in ("batched_bench", "profile_tool"):
+            text = ""  # timings only: they have to run and exit 0
+        elif name == "parallel":
+            text = re.sub(r"\(\s*[0-9.]+s, ", "(", text)  # latencies
+        out[name] = (rc, text)
+        if rc not in ((0, 1) if name == "passkey" else (0,)):
+            raise AssertionError(f"{name} on {device} exited {rc}: {err[-2000:]}")
+    with open(static, "rb") as f:
+        out["lookup_static_bytes"] = (0, f.read().hex())
+    from prima_tpu_torch.models.loader import load_model
+    from prima_tpu_torch.tools.gritlm import encode, gritlm_instruction
+
+    m = load_model(TINY, device=device)
+    out["gritlm_embeddings"] = encode(m, ["hello world", "goodbye moon"],
+                                      gritlm_instruction("retrieve stuff"), "kernel", device)
+    return out
+
+
+# the tools whose stdout prints f32 results (ppl, KLD) past f32's
+# resolution: a ppl of ~3663 to 4 decimals is 1e-8 relative, and the card
+# sums in another order than the CPU (card 3663.2964, CPU 3663.2970)
+PRINTED_F32 = ("perplexity", "kl_divergence")
+F32_PRINT_TOL = 1e-5  # relative, and absolute for values under 1
+
+
+def same_text_f32(a: str, b: str) -> bool:
+    """Equal text, the decimal numbers in it within F32_PRINT_TOL."""
+    import re
+
+    num = re.compile(r"-?\d+\.\d+")
+    if num.sub("#", a) != num.sub("#", b):
+        return False
+    return all(abs(float(x) - float(y)) <= F32_PRINT_TOL * max(1.0, abs(float(y)))
+               for x, y in zip(num.findall(a), num.findall(b)))
+
+
+def tools_tiny(report_tools: dict) -> None:
+    """The tools on the tiny pair in f32, on the card against --device cpu:
+    equal exit codes and deterministic stdout (text, tokens, the static
+    lookup cache's bytes; ppl and KLD within F32_PRINT_TOL), gritlm
+    embeddings at cosine >= 0.9999; the card's launch counts, among them
+    kv_write's from save_load_state's slot restores."""
+    import numpy as np
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "tools")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.time()
+    with f32_defaults():
+        counters = zero_counts()
+        card = tiny_tool_runs("cuda", work)
+        launches = read_counts(counters)
+        cpu = tiny_tool_runs("cpu", work)
+    ec, ep = card.pop("gritlm_embeddings"), cpu.pop("gritlm_embeddings")
+    cos = [float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))) for a, b in zip(ec, ep)]
+    diff = sorted(k for k in card if card[k] != cpu[k] and not (
+        k in PRINTED_F32 and card[k][0] == cpu[k][0] and same_text_f32(card[k][1], cpu[k][1])))
+    report_tools["tiny"] = {"tools": sorted(card), "differ": diff, "gritlm_cosine": cos,
+                            "f32_printed": {k: (card[k][1], cpu[k][1]) for k in PRINTED_F32},
+                            "launches": launches, "wall_s": time.time() - t0,
+                            "stdout": {k: v[1][-400:] for k, v in card.items()
+                                       if k != "lookup_static_bytes"}}
+    for k in sorted(card):
+        if k != "lookup_static_bytes":
+            log(f"tool {k} on the card: rc {card[k][0]} {card[k][1].strip()[-160:]!r}")
+    log(f"tiny tools card vs cpu: differ {diff}, gritlm cosine {cos}, launches {launches}")
+    for k in diff:
+        log(f"  {k}: card {card[k][1][-600:]!r}\n  {k}: cpu  {cpu[k][1][-600:]!r}")
+    if diff or min(cos) < 0.9999:
+        raise AssertionError(f"tools differ on the card from the CPU: {diff}, cosine {cos}")
+    for name in ("qgemv", "kv_store", "kv_write"):
+        if not launches.get(name):
+            raise AssertionError(f"the tiny tools ran without {name}: {launches}")
+
+
+def phase_tools(dev, report: dict) -> None:
+    """bench_tool at the 8B shape; lookup and lookahead decoding and the
+    perplexity chunk on the 8B-shape engine; the tools on the tiny pair,
+    card against CPU."""
+    import numpy as np
+    import torch
+
+    r: dict = {}
+    t0 = time.time()
+    r["bench"] = tools_bench()
+    log(f"tools bench: {time.time() - t0:.1f} s")
+    cfg, params = weights_8b(dev)
+    pattern = np.random.default_rng(11).integers(0, cfg.n_vocab, 16).tolist()
+    prompt = pattern * (TOOLS_PROMPT // 16)
+    t0 = time.time()
+    plain = plain_greedy(cfg, params, dev, prompt, 64)
+    r["lookup"] = tools_lookup(cfg, params, dev, prompt, plain)
+    log(f"tools lookup: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    r["lookahead"] = tools_lookahead(cfg, params, dev, prompt, plain)
+    log(f"tools lookahead: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    r["perplexity"] = tools_perplexity(cfg, params, dev)
+    log(f"tools perplexity: {time.time() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tools_tiny(r)
+    launches = Counter()
+    for part in (r["bench"]["launches"], r["lookup"]["bf16"]["launches"],
+                 r["lookahead"]["bf16"]["launches"], r["tiny"]["launches"],
+                 r["perplexity"]["bf16"]["kernel"]["launches"]):
+        launches.update(part)
+    r["launches"] = dict(launches)
+    for name, n in launches.items():
+        report[name]["tools_launches"] = n
+    report["tools"] = r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,server,full,long,spec,ring,moe",
+    ap.add_argument("--phases", default="build,kernels,server,full,long,spec,ring,moe,tools",
                     help="comma-separated subset of build,kernels,server,full,long,spec,ring,"
-                         "moe")
+                         "moe,tools")
     # rank 1 of phase ring's full-width ring runs this script with these
     ap.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
@@ -2966,6 +3495,10 @@ def main() -> int:
         t0 = time.time()
         launches["qgemv_indexed"] = phase_moe(dev, report)["qgemv_indexed"]
         log(f"moe: {time.time() - t0:.1f} s")
+    if "tools" in phases:
+        t0 = time.time()
+        phase_tools(dev, report)
+        log(f"tools: {time.time() - t0:.1f} s")
     launches["kv_write"] = report.get("server_long_context", {}).get(
         "launches", {}).get("kv_write")
     launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")

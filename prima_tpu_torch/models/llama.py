@@ -15,7 +15,7 @@ after its layer.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -732,11 +732,20 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
             opts: ForwardOptions = ForwardOptions(), return_hidden: bool = False,
             mask_positions: torch.Tensor | None = None,
             layer_range: tuple[int, int] | None = None,
-            hidden_in: torch.Tensor | None = None):
+            hidden_in: torch.Tensor | None = None,
+            attn_mask: torch.Tensor | None = None):
     """tokens / positions (b, s) int, kv_caches per layer (k, v) of
     (b, T, n_kv, hd), cache_pos (b,) int32 write index on the device.
     Returns (logits (b, s, V), kv_caches) — the caches are updated in place
     — or the pre-norm hidden states with return_hidden=True.
+
+    attn_mask (b, 1, s, T) f32, additive, replaces the causal (or ALiBi)
+    mask: non-causal visibility such as the lookahead decoder's token tree
+    or a bidirectional encoder (prima_tpu/models/llama.py:1246-1255). The
+    flash kernels derive visibility from positions alone, so a mask forces
+    the plain attention whatever opts.attn_impl says; on an ALiBi model the
+    slopes scale the caller's mask as they scale alibi_mask. The step's
+    rows land at cache_pos + i whatever their positions.
 
     layer_range=(lo, hi) runs layers [lo, hi) only, the building block of
     the ring's windows (prima_tpu/models/llama.py:1196-1238): it takes
@@ -760,10 +769,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
     inv_freq, mscale = rope_freqs(cfg, x.device)
     t_cache = kv_caches[lo][0].shape[1] if hi > lo else 0
     mpos = positions if mask_positions is None else mask_positions
+    if attn_mask is not None and opts.attn_impl == "kernel":
+        opts = replace(opts, attn_impl="plain")
     mask = mask_swa = None
     if not _flash_route(cfg, opts):  # the flash kernels derive visibility themselves
-        mask = (alibi_mask(mpos, t_cache) if cfg.alibi_max_bias  # bloom / mpt
-                else causal_mask(mpos, t_cache))
+        if attn_mask is not None:
+            mask = attn_mask
+        else:
+            mask = (alibi_mask(mpos, t_cache) if cfg.alibi_max_bias  # bloom / mpt
+                    else causal_mask(mpos, t_cache))
         if cfg.swa_window:  # gemma2: a sliding window on even layers
             mask_swa = causal_mask(mpos, t_cache, swa_window=cfg.swa_window)
     for i in range(lo, hi):
