@@ -128,6 +128,26 @@ Phases, each of which fails the run on any error or mismatch:
                against the base file the run wrote, gritlm): equal exit codes
                and stdout, gritlm embeddings at cosine >= 0.9999;
                batched_bench and profile_tool run and exit 0.
+ 10. quant   — the activation taps and the quantize toolchain, the kernel
+               counts set to 0 before each path and read after it: on the 8B
+               shape (Q4_K, generated on the card, a tokenizer that gives
+               seeded ids), imatrix over two chunks of 512 in bf16 (225
+               entries, finite, >= 0, nonzero; a chunk's wall and device ms,
+               idle share and host syncs; a tapped forward synchronizes no
+               more than an untapped one) and at -c 16 in f32, kernels vs
+               plain; eval_callback's forward of 16 tokens in f32, kernels vs
+               plain (each tap's rms / min / max, the top-5 ids);
+               cvector_generator from two prompt pairs in f32, kernels vs
+               plain (cosine a layer), its file loaded as a control vector
+               on the 8B engine, which decodes 8 tokens; layer 0 dequantized
+               to the host, quantized to Q4_K by the port's quantize_np
+               (attn_k weighted by the imatrix through an imatrix file),
+               written by the port's GGUFWriter, loaded by the port's loader
+               and held through qgemv against qmatmul_plain at B = 1 and 4;
+               then on the tiny pair in f32, the card against --device cpu:
+               imatrix at -c 64, quantize to Q4_K_M with it and 16 greedy
+               tokens of the result, quantize_stats, export_lora, gguf_split
+               and its merge, gguf_hash, tokenize and gbnf_validator.
 The decoder writes K and V through the fused KV store; the byte-generic KV
 write runs where a saved slot is restored, so its launches are the server's
 (phase 3). The device-memory probe is on no serving path: its launches are
@@ -3380,11 +3400,543 @@ def phase_tools(dev, report: dict) -> None:
     report["tools"] = r
 
 
+QUANT_CTX = 512  # imatrix's default -c: every chunk takes the dense weight path
+QUANT_CHUNKS = 2
+QUANT_SHORT = 16  # rows under qmatmul.MAX_B: the GEMV route
+# imatrix and eval_callback taps in f32, kernels vs plain: max |err| of a
+# key <= QUANT_REL * its largest value (sums of x^2 over 16-32 rows whose
+# inputs differ by the GEMV's ~3e-6 of max |y|)
+QUANT_REL = 1e-4
+QUANT_COS = 0.9999  # a layer's control direction, kernels vs plain (f32)
+GGUF_NAMES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
+              "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down"}
+
+
+class SeededTokens:
+    """The tokenizer of the synthetic 8B weights: encode() gives `n` token
+    ids drawn from a generator seeded by the text."""
+
+    def __init__(self, n_vocab: int, n: int):
+        self.n_vocab, self.n = n_vocab, n
+
+    def encode(self, text: str, add_special: bool = True, parse_special: bool = False) -> list:
+        import zlib
+
+        import numpy as np
+
+        rng = np.random.default_rng(zlib.crc32(text.encode()))
+        return rng.integers(0, self.n_vocab, self.n).tolist()
+
+
+def weights_8b_centred(dev):
+    """The Llama-3-8B shape with centred Q4_K weights generated on the card
+    (zero_mean, as phase moe's): with the synth's default mean every hidden
+    state shares one direction, which a difference of two prompts' hidden
+    states cancels, and cvector_generator's directions are such differences
+    of differences."""
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import synth_qtensor_device
+
+    cfg = tiny_config(**LLAMA3_8B)
+    e, h, kvh, hd, f = cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ff
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    t0 = time.time()
+    q = lambda rows, k: synth_qtensor_device(gen, rows, k, GGMLType.Q4_K, dev,
+                                             zero_mean=True)
+    ones = lambda: torch.ones(e, dtype=torch.float32, device=dev)
+    params = {"tok_embd": q(cfg.n_vocab, e), "output": q(cfg.n_vocab, e),
+              "output_norm": ones(), "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": ones(), "wq": q(h * hd, e), "wk": q(kvh * hd, e),
+            "wv": q(kvh * hd, e), "wo": q(e, h * hd), "ffn_norm": ones(),
+            "w_gate": q(f, e), "w_up": q(f, e), "w_down": q(e, f)})
+    torch.cuda.synchronize()
+    log(f"8B-shape centred Q4_K weights generated on the card in {time.time() - t0:.1f} s")
+    return cfg, params
+
+
+def quant_model(cfg, params, n_tokens: int):
+    """What the tools take from a loaded model: cfg, params, a tokenizer."""
+    import types
+
+    return types.SimpleNamespace(cfg=cfg, params=params,
+                                 tokenizer=SeededTokens(cfg.n_vocab, n_tokens))
+
+
+def max_rel(a: dict, b: dict) -> float:
+    """The largest max |a[k] - b[k]| / max |b[k]| over the keys."""
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(a[k], np.float64) - b[k]).max() / np.abs(b[k]).max())
+               for k in b)
+
+
+def quant_imatrix(dev, cfg, params) -> dict:
+    """collect_imatrix over two chunks of 512 seeded tokens in bf16 (the
+    tool's defaults): 7 entries a layer and output.weight, each finite,
+    >= 0 and nonzero; one chunk's wall and device ms, idle share and host
+    syncs; a tapped forward synchronizes no more than an untapped one;
+    then at -c 16 in f32 (the GEMV route), kernels vs plain."""
+    import io
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+    from prima_tpu_torch.tools.imatrix import chunk_taps, collect_imatrix
+
+    model = quant_model(cfg, params, QUANT_CHUNKS * QUANT_CTX)
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    stats = collect_imatrix(model, "calibration", n_ctx=QUANT_CTX, max_chunks=QUANT_CHUNKS,
+                            logfile=io.StringIO(), device=dev)
+    wall = time.perf_counter() - t0  # the last chunk's sums came back to the host
+    launches = read_counts(counters)
+    want = {f"blk.{i}.{n}.weight" for i in range(cfg.n_layers) for n in GGUF_NAMES.values()}
+    want.add("output.weight")
+    bad = sorted(k for k, (ssq, cnt, ncall) in stats.items()
+                 if not (np.isfinite(ssq).all() and (ssq >= 0).all() and (ssq > 0).any()
+                         and cnt == QUANT_CHUNKS * QUANT_CTX and ncall == QUANT_CHUNKS))
+    stored = {k: ((ssq / cnt) * ncall).astype(np.float32, copy=False)
+              for k, (ssq, cnt, ncall) in stats.items()}
+    out = {"entries": len(stats), "entries_expected": len(want), "bad_entries": bad,
+           "n_ctx": QUANT_CTX, "chunks": QUANT_CHUNKS, "wall_s": wall, "launches": launches}
+
+    toks = torch.as_tensor(np.random.default_rng(12).integers(0, cfg.n_vocab, QUANT_CTX),
+                           device=dev)
+    opts = ForwardOptions()
+    chunk_taps(model, toks, opts)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk_taps(model, toks, opts)  # ends in the copy of the sums to the host
+    chunk_wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk_taps(model, toks, opts)
+        torch.cuda.synchronize()
+    by, top = device_ms(prof)
+    busy = sum(by.values())
+    syncs = count_syncs(lambda: chunk_taps(model, toks, opts))
+
+    def fwd(taps):
+        kv = init_kv_caches(cfg, 1, QUANT_CTX, torch.bfloat16, dev)
+        with torch.no_grad():
+            forward(params, cfg, toks[None], torch.arange(QUANT_CTX, device=dev,
+                                                          dtype=torch.int32)[None],
+                    kv, torch.zeros(1, dtype=torch.int32, device=dev), opts, taps=taps)
+
+    tapped, untapped = count_syncs(lambda: fwd({})), count_syncs(lambda: fwd(None))
+    # what the taps cost: the chunk's forward with and without them, in
+    # turns, each ending in a synchronize; and each one's device time
+    walls = {"tapped": [], "untapped": []}
+    for _ in range(3):
+        for name, taps in (("untapped", None), ("tapped", {})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd(taps)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    busy_fwd = {}
+    for name, taps in (("untapped", None), ("tapped", {})):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fwd(taps)
+            torch.cuda.synchronize()
+        busy_fwd[name] = sum(device_ms(prof)[0].values())
+    out["chunk"] = {"wall_ms": chunk_wall, "device_busy_ms": busy,
+                    "device_idle_share": 1 - busy / chunk_wall, "device_ms": by,
+                    "top_kernels_ms": top, "host_syncs": syncs,
+                    "forward_syncs_tapped": tapped, "forward_syncs_untapped": untapped,
+                    "forward_wall_ms": walls, "forward_device_ms": busy_fwd,
+                    "taps_wall_share": statistics.median(walls["tapped"])
+                    / statistics.median(walls["untapped"]) - 1,
+                    "taps_device_share": busy_fwd["tapped"] / busy_fwd["untapped"] - 1}
+    log("imatrix 8B (bf16)", json.dumps({k: v for k, v in out.items() if k != "chunk"}))
+    log("imatrix 8B chunk", json.dumps({k: v for k, v in out["chunk"].items()
+                                        if k != "top_kernels_ms"}))
+    if len(stats) != len(want) or set(stats) != want or bad:
+        raise AssertionError(f"imatrix: {len(stats)} entries of {len(want)}, bad {bad}")
+    if tapped["count"] != untapped["count"]:
+        raise AssertionError(f"a tapped forward synchronizes more: {tapped} vs {untapped}")
+
+    # f32 at -c 16: the GEMV route, kernels vs plain
+    short = {}
+    with f32_defaults():
+        for impl in ("kernel", "plain"):
+            counters = zero_counts()
+            st = collect_imatrix(quant_model(cfg, params, QUANT_CHUNKS * QUANT_SHORT),
+                                 "calibration", n_ctx=QUANT_SHORT, matmul=impl,
+                                 max_chunks=QUANT_CHUNKS, logfile=io.StringIO(), device=dev)
+            short[impl] = ({k: v[0] for k, v in st.items()}, read_counts(counters))
+    rel = max_rel(short["kernel"][0], short["plain"][0])
+    out["f32_short"] = {"n_ctx": QUANT_SHORT, "max_rel_err": rel,
+                        "tolerance": f"max|err| <= {QUANT_REL} * max|plain| a key",
+                        "launches": short["kernel"][1], "plain_launches": short["plain"][1]}
+    log("imatrix 8B (f32, -c 16) kernels vs plain", json.dumps(out["f32_short"]))
+    if sorted(short["kernel"][0]) != sorted(short["plain"][0]) or not rel <= QUANT_REL:
+        raise AssertionError(f"imatrix kernels vs plain: {rel}")
+    if not short["kernel"][1].get("qgemv"):
+        raise AssertionError(f"imatrix at -c 16 ran without qgemv: {short['kernel'][1]}")
+    out["stored"] = stored
+    return out
+
+
+def tap_table(taps: dict) -> dict:
+    """eval_callback's columns a key: rms, column min and max."""
+    import numpy as np
+
+    out = {}
+    for name, (ssq, cnt) in taps.items():
+        col = np.asarray(ssq, np.float64) / max(int(cnt), 1)
+        out[name] = np.sqrt([col.mean(), col.min(), col.max()])
+    return out
+
+
+def quant_eval_callback(dev, cfg, params) -> dict:
+    """eval_callback's forward (f32 activations, logits and cache) of a
+    16-token prompt, kernels vs plain: each tap's rms / min / max within
+    QUANT_REL, the top-5 ids equal."""
+    import numpy as np
+
+    from prima_tpu_torch.tools.eval_callback import run_taps
+
+    model = quant_model(cfg, params, QUANT_SHORT)
+    toks = model.tokenizer.encode("Hello world")
+    res = {}
+    for impl in ("kernel", "plain"):
+        counters = zero_counts()
+        last, taps = run_taps(model, toks, impl, dev)
+        res[impl] = (last, tap_table(taps), read_counts(counters))
+    (kl, kt, launches), (pl, pt, _) = res["kernel"], res["plain"]
+    rel = max(float(np.abs(kt[k] - pt[k]).max() / np.abs(pt[k]).max()) for k in pt)
+    top_k, top_p = np.argsort(-kl)[:5].tolist(), np.argsort(-pl)[:5].tolist()
+    out = {"tokens": len(toks), "keys": len(kt), "max_rel_err": rel, "top5": top_k,
+           "top5_plain": top_p, "logits_max_abs_err": float(np.abs(kl - pl).max()),
+           "tolerance": f"rms/min/max within {QUANT_REL} relative, top-5 ids equal",
+           "launches": launches}
+    log("eval_callback 8B (f32) kernels vs plain", json.dumps(out))
+    if sorted(kt) != sorted(pt) or len(kt) != 7 * cfg.n_layers + 1:
+        raise AssertionError(f"eval_callback keys: {len(kt)} vs {len(pt)}")
+    if not (rel <= QUANT_REL and top_k == top_p):
+        raise AssertionError(f"eval_callback kernels vs plain: {rel}, {top_k} vs {top_p}")
+    if not launches.get("qgemv"):
+        raise AssertionError(f"eval_callback ran without qgemv: {launches}")
+    return out
+
+
+def quant_cvector(dev, cfg, params, work: str) -> dict:
+    """cvector_generator's directions from two prompt pairs in f32, kernels
+    vs plain, cosine >= QUANT_COS a layer; the kernels' file loaded as a
+    control vector on the 8B engine, which decodes 8 tokens. Beside each
+    layer's cosine: the hidden states' error, kernels vs plain, and how far
+    the centred pair differences the direction comes from cancel."""
+    import numpy as np
+
+    from prima_tpu_torch.models.adapters import apply_control_vector, load_control_vector
+    from prima_tpu_torch.runtime.engine import Engine
+    from prima_tpu_torch.tools.cvector_generator import (cvector_directions, hidden_per_layer,
+                                                         pca_directions, write_cvector)
+
+    model = quant_model(cfg, params, 24)
+    pos, neg = ["happy one", "happy two"], ["sad one", "sad two"]
+    hidden, dirs, launches = {}, {}, {}
+    with f32_defaults():
+        for impl in ("kernel", "plain"):
+            counters = zero_counts()
+            dirs[impl] = cvector_directions(model, pos, neg, impl, dev)
+            launches[impl] = read_counts(counters)
+            hidden[impl] = np.stack([hidden_per_layer(model, p, impl, dev) for p in pos + neg])
+    norm = lambda a: np.linalg.norm(a, axis=-1)
+    h, hk = hidden["plain"].astype(np.float64), hidden["kernel"].astype(np.float64)
+    diffs = h[:2] - h[2:]  # (pair, layer, n_embd)
+    centred = diffs[0] - diffs[1]
+    per_layer = [{"cosine": float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))),
+                  "hidden_rel_err": float((norm(hk[:, li] - h[:, li]) / norm(h[:, li])).max()),
+                  "hidden_over_centred": float(norm(h[:, li]).max() / norm(centred[li]))}
+                 for li, (a, b) in enumerate(zip(dirs["kernel"], dirs["plain"]))]
+    again = pca_directions((hidden["kernel"][:2] - hidden["kernel"][2:]).transpose(1, 0, 2))
+    path = os.path.join(work, "cvector_8b.gguf")
+    write_cvector(path, dirs["kernel"], cfg.arch)
+    cvec = load_control_vector(path, strength=4.0, device=dev)
+    eng = Engine(cfg, apply_control_vector(params, cvec), n_slots=1, max_seq=256, device=dev)
+    counters = zero_counts()
+    toks = eng.run_to_completion(SeededTokens(cfg.n_vocab, QUANT_SHORT).encode("steer"),
+                                 n_predict=8)
+    launches["engine"] = read_counts(counters)
+    free(eng)
+    cos = [r["cosine"] for r in per_layer]
+    hidden_err = max(r["hidden_rel_err"] for r in per_layer)
+    out = {"hidden_max_rel_err": hidden_err,
+           "hidden_tolerance": f"|kernel - plain| <= {LOGITS_TOL} * |plain| a state","pairs": len(pos), "min_cosine": min(cos), "layers": len(cos),
+           "tolerance": f"cosine >= {QUANT_COS} a layer", "directions_loaded": len(cvec),
+           "directions_repeat": bool(np.array_equal(again, dirs["kernel"])),
+           "steered_tokens": toks, "launches": launches["kernel"],
+           "engine_launches": launches["engine"], "per_layer": per_layer}
+    log("cvector_generator 8B (f32) kernels vs plain",
+        json.dumps({k: v for k, v in out.items() if k != "per_layer"}))
+    for li, r in enumerate(per_layer):
+        log(f"  layer {li + 1}: cosine {r['cosine']:.7f}, hidden rel err "
+            f"{r['hidden_rel_err']:.2e}, |h| / |centred diff| {r['hidden_over_centred']:.1f}")
+    if not (len(cos) == cfg.n_layers and min(cos) >= QUANT_COS and hidden_err <= LOGITS_TOL):
+        raise AssertionError(f"cvector directions kernels vs plain: cosine {cos}, hidden "
+                             f"states {hidden_err}")
+    if not out["directions_repeat"]:
+        raise AssertionError("cvector_generator's directions differ from the same hidden states'")
+    if len(cvec) != cfg.n_layers or len(toks) != 8:
+        raise AssertionError(f"control vector: {len(cvec)} directions, {len(toks)} tokens")
+    if not launches["kernel"].get("qgemv"):
+        raise AssertionError(f"cvector_generator ran without qgemv: {launches['kernel']}")
+    return out
+
+
+def quant_roundtrip(dev, cfg, params, stored: dict, work: str) -> dict:
+    """Layer 0 of the 8B weights dequantized to f32 on the host, quantized
+    with the port's quantize_np to Q4_K (attn_k weighted by the imatrix,
+    through an imatrix file), written with the port's GGUFWriter, loaded
+    by the port's loader, and held through qgemv against qmatmul_plain at
+    B = 1 and 4 (GEMV_TOL of max |y|); the host seconds a layer."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.gguf.reader import GGUFModel
+    from prima_tpu_torch.gguf.writer import GGUFWriter
+    from prima_tpu_torch.models.config import ModelConfig
+    from prima_tpu_torch.models.llama import gguf_host_layer
+    from prima_tpu_torch.quant import qmatmul as qm
+    from prima_tpu_torch.quant.dequant_np import dequantize
+    from prima_tpu_torch.quant.qtensor import dequant
+    from prima_tpu_torch.quant.quantize_imatrix import (load_imatrix, quantize_weighted,
+                                                        save_imatrix)
+    from prima_tpu_torch.quant.quantize_np import quantize
+
+    q4k = GGMLType.Q4_K
+    layer = params["layers"][0]
+    t0 = time.perf_counter()
+    host = {k: dequant(layer[k], torch.float32).cpu().numpy() for k in GGUF_NAMES}
+    t_dequant = time.perf_counter() - t0
+    im_path = os.path.join(work, "8b.imatrix")
+    save_imatrix(im_path, {k: (v, QUANT_CHUNKS) for k, v in stored.items()}, QUANT_CHUNKS,
+                 dataset="seeded")
+    qw = load_imatrix(im_path)["blk.0.attn_k.weight"]
+    t0 = time.perf_counter()
+    raw = {k: quantize(x, q4k) for k, x in host.items()}
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw_k = quantize_weighted(host["wk"], q4k, qw)
+    t_weighted = time.perf_counter() - t0
+    k_cols = host["wk"].shape[1]
+    werr = {name: float(np.sum(qw * (dequantize(r, q4k, k_cols) - host["wk"]) ** 2))
+            for name, r in (("weighted", raw_k), ("unweighted", raw["wk"]))}
+    raw["wk"] = raw_k
+
+    path = os.path.join(work, "layer0_q4k.gguf")
+    w = GGUFWriter(path, arch="llama")
+    for key, val in {"block_count": cfg.n_layers, "embedding_length": cfg.n_embd,
+                     "attention.head_count": cfg.n_heads,
+                     "attention.head_count_kv": cfg.n_kv_heads,
+                     "feed_forward_length": cfg.n_ff, "context_length": cfg.n_ctx_train,
+                     "attention.layer_norm_rms_epsilon": cfg.rms_eps,
+                     "rope.freq_base": cfg.rope_base, "rope.dimension_count": cfg.rope_dim,
+                     "vocab_size": cfg.n_vocab}.items():
+        w.add_kv(f"llama.{key}", val)
+    for norm in ("attn_norm", "ffn_norm"):
+        w.add_tensor(f"blk.0.{norm}.weight", layer[norm].float().cpu().numpy())
+    for k, r in raw.items():
+        n, kk = host[k].shape
+        w.add_tensor(f"blk.0.{GGUF_NAMES[k]}.weight", r, ne=(kk, n), ggml_type=q4k)
+    t0 = time.perf_counter()
+    w.write()
+    m = GGUFModel.open(path)
+    loaded = params_to(gguf_host_layer(m, ModelConfig.from_gguf(m), 0), dev)
+    t_io = time.perf_counter() - t0
+    m.close()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    cases, worst = [], 0.0
+    for k in GGUF_NAMES:
+        qt = loaded[k]
+        for b in (1, 4):
+            x = torch.randn(b, qt.n_cols, generator=gen, device=dev)
+            y, ref = qm.qgemv(x, qt), qm.qmatmul_plain(x, qt)
+            err = (y - ref).abs().max().item() / ref.abs().max().item()
+            worst = max(worst, err)
+            cases.append({"tensor": GGUF_NAMES[k], "b": b, "rel_err": err})
+        rt = dequant(qt, torch.float32).cpu().numpy()
+        cases[-1]["roundtrip_rel_rmse"] = float(np.sqrt(np.mean((rt - host[k]) ** 2))
+                                               / np.sqrt(np.mean(host[k] ** 2)))
+    out = {"file_mib": os.path.getsize(path) / 2 ** 20, "host_s": {
+        "dequant_to_host": t_dequant, "quantize_7_q4k": t_plain,
+        "quantize_weighted_attn_k": t_weighted, "write_and_load": t_io,
+        "layer": t_dequant + t_plain + t_weighted + t_io},
+        "attn_k_weighted_error": werr, "qgemv_max_rel_err": worst,
+        "tolerance": f"max|qgemv - plain| <= {GEMV_TOL} * max|plain|", "cases": cases}
+    log("quantize round trip of layer 0 (8B)", json.dumps(out))
+    if not worst <= GEMV_TOL:
+        raise AssertionError(f"re-quantized layer: qgemv vs plain {worst}")
+    if not werr["weighted"] <= werr["unweighted"] * 1.001:
+        raise AssertionError(f"the imatrix-weighted attn_k errs more where it counts: {werr}")
+    return out
+
+
+def quant_tiny_runs(device: str, work: str) -> dict:
+    """The quantize toolchain on the tiny pair: {name: (exit code, output)};
+    quantize takes the card's imatrix in both runs, so that the host tools
+    see the same inputs."""
+    import hashlib
+    import re
+
+    from prima_tpu_torch.quant.quantize_imatrix import load_imatrix
+    from prima_tpu_torch.tools import (export_lora, gbnf_validator, gguf_hash, gguf_split,
+                                       imatrix, quantize, quantize_stats, simple, tokenize)
+
+    d = ["--device", device]
+    corpus = os.path.join(work, "calib.txt")
+    with open(corpus, "w") as f:
+        f.write("Once upon a time there was a little fox. The fox ran to the river. "
+                "Once upon a time there was a little bird. The bird flew to the river. " * 6)
+    grammar = os.path.join(work, "g.gbnf")
+    with open(grammar, "w") as f:
+        f.write('root ::= "{" ws "\\"a\\":" ws arr ws "}"\narr ::= "[" ws num (ws "," ws num)* '
+                'ws "]"\nnum ::= [0-9]+\nws ::= [ ]*\n')
+    inputs = {}
+    for name, text in (("valid", '{"a": [1, 2]}'), ("invalid", '{"a": [1, 2}')):
+        inputs[name] = os.path.join(work, f"{name}.txt")
+        with open(inputs[name], "w") as f:
+            f.write(text)
+    lora = write_tiny_lora(os.path.join(work, "lora.gguf"))
+    im = os.path.join(work, f"tiny.{device}.imatrix")
+    q = os.path.join(work, f"q4km.{device}.gguf")
+    split = os.path.join(work, f"split.{device}")
+    digest = lambda p: hashlib.sha256(open(p, "rb").read()).hexdigest()
+    out = {}
+
+    def call(name, main, args, rc=0):
+        got, text, err = tool_call(main, args)
+        if got != rc:
+            raise AssertionError(f"{name} on {device} exited {got}: {err[-2000:]}")
+        out[name] = (got, text.replace(work, "W").replace(device, "DEV"))
+        return text
+
+    call("imatrix", imatrix.main, ["-m", TINY, "-f", corpus, "-o", im, "-c", "64"] + d)
+    out["imatrix_values"] = (0, load_imatrix(im))
+    call("quantize", quantize.main, [TINY, q, "Q4_K_M", "--imatrix",
+                                     os.path.join(work, "tiny.cuda.imatrix")])
+    out["quantize"] = (0, re.sub(r"in [0-9.]+s", "in #s", out["quantize"][1]))
+    out["quantized_file"] = (0, digest(q))
+    call("simple_q4km", simple.main, ["-m", q, "-p", "Once upon a time", "-n", "16"] + d)
+    call("quantize_stats", quantize_stats.main, ["-m", TINY, "--type", "q4_K", "--type",
+                                                 "q8_0", "--type", "iq4_nl", "-p"])
+    merged = os.path.join(work, f"merged.{device}.gguf")
+    call("export_lora", export_lora.main, ["-m", TINY, "--lora", lora, "-o", merged])
+    out["merged_file"] = (0, digest(merged))
+    shards = call("gguf_split", gguf_split.main, ["split", TINY, split,
+                                                  "--split-max-tensors", "10"]).split()
+    out["shards"] = (0, [digest(s) for s in shards])
+    call("gguf_merge", gguf_split.main, ["merge", shards[0], split + ".merged.gguf"])
+    out["merged_shards"] = (0, digest(split + ".merged.gguf"))
+    call("gguf_hash", gguf_hash.main, [TINY, "--all"])
+    call("tokenize", tokenize.main, ["-m", TINY, "-p", "Once upon a time, the fox ran.",
+                                     "--show-count"])
+    for name, rc in (("valid", 0), ("invalid", 1)):
+        call(f"gbnf_{name}", gbnf_validator.main, [grammar, inputs[name]], rc)
+    return out
+
+
+QUANT_PRINTED_F32 = ("quantize_stats",)
+
+
+def quant_tiny() -> dict:
+    """The quantize toolchain on the tiny pair in f32, the card against
+    --device cpu: imatrix values within F32_PRINT_TOL of each key's
+    largest; every other output equal (text, file digests; quantize_stats'
+    floats within F32_PRINT_TOL); a Q4_K_M quantization with the imatrix
+    decodes 16 greedy tokens, the same on both."""
+    work = os.path.join(ROOT, "build", "chip_smoke", "quant")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.time()
+    with f32_defaults():
+        counters = zero_counts()
+        card = quant_tiny_runs("cuda", work)
+        launches = read_counts(counters)
+        cpu = quant_tiny_runs("cpu", work)
+    ic, ip = card.pop("imatrix_values")[1], cpu.pop("imatrix_values")[1]
+    rel = max_rel(ic, ip) if sorted(ic) == sorted(ip) else float("inf")
+    diff = sorted(k for k in card if card[k] != cpu[k] and not (
+        k in QUANT_PRINTED_F32 and card[k][0] == cpu[k][0]
+        and same_text_f32(card[k][1], cpu[k][1])))
+    out = {"tools": sorted(card), "differ": diff, "imatrix_entries": len(ic),
+           "imatrix_max_rel_err": rel, "launches": launches, "wall_s": time.time() - t0,
+           "stdout": {k: str(v[1])[-400:] for k, v in card.items()}}
+    for k in sorted(card):
+        log(f"tool {k} on the card: rc {card[k][0]} {str(card[k][1]).strip()[-160:]!r}")
+    log(f"tiny quantize tools card vs cpu: differ {diff}, imatrix {len(ic)} entries within "
+        f"{rel:.2e}, launches {launches}")
+    for k in diff:
+        log(f"  {k}: card {str(card[k][1])[-600:]!r}\n  {k}: cpu  {str(cpu[k][1])[-600:]!r}")
+    if diff or not rel <= F32_PRINT_TOL or len(ic) != 29:
+        raise AssertionError(f"quantize tools differ on the card from the CPU: {diff}, "
+                             f"imatrix {len(ic)} entries within {rel}")
+    for name in ("qgemv", "kv_store"):
+        if not launches.get(name):
+            raise AssertionError(f"the tiny quantize tools ran without {name}: {launches}")
+    return out
+
+
+def phase_quant(dev, report: dict) -> None:
+    """imatrix, eval_callback and cvector_generator at the 8B shape, a
+    full-width layer's quantize round trip, and the quantize toolchain on
+    the tiny pair, card against CPU."""
+    import torch
+
+    r: dict = {}
+    work = os.path.join(ROOT, "build", "chip_smoke", "quant")
+    os.makedirs(work, exist_ok=True)
+    cfg, params = weights_8b_centred(dev)
+    failed = []
+
+    def part(name, fn, *a):
+        t0 = time.time()
+        try:
+            r[name] = fn(*a)
+        except AssertionError as e:  # the phase's other checks still run
+            log(f"quant {name} FAILED: {e}")
+            failed.append(name)
+            r[name] = {"failed": str(e)}
+        log(f"quant {name}: {time.time() - t0:.1f} s")
+
+    part("imatrix", quant_imatrix, dev, cfg, params)
+    stored = r["imatrix"].pop("stored", None)
+    part("eval_callback", quant_eval_callback, dev, cfg, params)
+    part("cvector", quant_cvector, dev, cfg, params, work)
+    if stored is not None:
+        part("roundtrip", quant_roundtrip, dev, cfg, params, stored, work)
+    del params, stored
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("tiny", quant_tiny)
+    report["quant"] = r
+    if failed:
+        raise AssertionError(f"phase quant failed: {failed}")
+    launches = Counter()
+    for counts in (r["imatrix"]["launches"], r["imatrix"]["f32_short"]["launches"],
+                   r["eval_callback"]["launches"], r["cvector"]["launches"],
+                   r["cvector"]["engine_launches"], r["tiny"]["launches"]):
+        launches.update(counts)
+    r["launches"] = dict(launches)
+    for name, n in launches.items():
+        report[name]["quant_launches"] = n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,server,full,long,spec,ring,moe,tools",
+    ap.add_argument("--phases", default="build,kernels,server,full,long,spec,ring,moe,tools,quant",
                     help="comma-separated subset of build,kernels,server,full,long,spec,ring,"
-                         "moe,tools")
+                         "moe,tools,quant")
     # rank 1 of phase ring's full-width ring runs this script with these
     ap.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
@@ -3499,6 +4051,10 @@ def main() -> int:
         t0 = time.time()
         phase_tools(dev, report)
         log(f"tools: {time.time() - t0:.1f} s")
+    if "quant" in phases:
+        t0 = time.time()
+        phase_quant(dev, report)
+        log(f"quant: {time.time() - t0:.1f} s")
     launches["kv_write"] = report.get("server_long_context", {}).get(
         "launches", {}).get("kv_write")
     launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")

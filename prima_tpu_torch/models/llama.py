@@ -15,6 +15,7 @@ after its layer.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Sequence
 
@@ -498,15 +499,19 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, kv: tuple, cache_pos: torch.Tensor,
                     mask: torch.Tensor | None, inv_freq: torch.Tensor, mscale: float,
                     opts: ForwardOptions, mask_pos: torch.Tensor | None = None,
-                    heads: tuple[int, int] | None = None) -> torch.Tensor:
+                    heads: tuple[int, int] | None = None, taps: dict | None = None,
+                    tap_prefix: str = "") -> torch.Tensor:
     """x (b, s, e) normed input. Writes this step's K/V into the caches in
     place and returns the attention output (b, s, e). Visibility follows
     mask_pos (the physical cache order) where given, else positions; the
     two differ only under Self-Extend. heads is a layer's own (h, kvh)
-    (openelm)."""
+    (openelm). taps collects the inputs of the four projections (`_tap`),
+    under their GGUF names whether or not the layer fused Q/K/V."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h, kvh = heads if heads is not None else (cfg.n_heads, cfg.n_kv_heads)
+    for n in ("attn_q", "attn_k", "attn_v"):
+        _tap(taps, tap_prefix + n + ".weight", x)
     if layer.get("wqkv") is not None:
         qkv = linear(x, layer["wqkv"], opts.matmul_impl)
         q, k, v = qkv.split([h * hd, kvh * hd, kvh * hd], dim=-1)
@@ -550,15 +555,38 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     out = out.reshape(b, s, h * hd)
     if cfg.sub_norms and layer.get("attn_sub_norm") is not None:
         out = rms_norm(out, layer["attn_sub_norm"], cfg.rms_eps)  # bitnet, before wo
+    _tap(taps, tap_prefix + "attn_output.weight", out)
     out = _scaled(linear_l(layer, "wo", out, opts.matmul_impl), layer, "wo_scale")
     return _biased(out, layer, "bo")
 
 
+def _tap(taps: dict | None, name: str, x: torch.Tensor) -> None:
+    """Add the per-column f32 sum of x^2 over every leading axis, and the
+    row count, to taps[name]: the statistics imatrix.cpp:171-196 collects
+    per mul_mat input (prima_tpu/models/llama.py:992-1002). The sum stays
+    on x's device and the count is a Python int from the shape, so a
+    tapped forward makes no host synchronization."""
+    if taps is None:
+        return
+    ssq = x.float().square().sum(dim=tuple(range(x.ndim - 1)))
+    cnt = math.prod(x.shape[:-1])
+    prev = taps.get(name)
+    if prev is not None:
+        ssq, cnt = ssq + prev[0], cnt + prev[1]
+    taps[name] = (ssq, cnt)
+
+
 def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions, act_fn: str = "silu",
-              gated: bool = True, eps: float = 1e-5) -> torch.Tensor:
+              gated: bool = True, eps: float = 1e-5, taps: dict | None = None,
+              tap_prefix: str = "") -> torch.Tensor:
     """The dense FFN: gated (SwiGLU / GeGLU / squared ReLU), chatglm's
     [gate | up] split of one projection, or a plain up -> act -> down MLP;
-    with the biases, bitnet scales and sub-norm a layer carries."""
+    with the biases, bitnet scales and sub-norm a layer carries. taps
+    collects the projections' inputs; a fused gate/up layer returns before
+    the ffn_down tap, as the JAX package's does (llama.py:1013-1020)."""
+    if gated:
+        _tap(taps, tap_prefix + "ffn_gate.weight", x)
+    _tap(taps, tap_prefix + "ffn_up.weight", x)
     if gated and layer.get("w_gateup") is not None:
         gate, up = linear(x, layer["w_gateup"], opts.matmul_impl).chunk(2, dim=-1)
         out = linear_l(layer, "w_down", gated_act(gate, up, act_fn), opts.matmul_impl)
@@ -576,6 +604,7 @@ def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions, act_fn: str = 
         act = gated_act(up, torch.ones((), dtype=up.dtype, device=up.device), act_fn)
     if layer.get("ffn_sub_norm") is not None:
         act = rms_norm(act, layer["ffn_sub_norm"], eps)  # bitnet, before ffn_down
+    _tap(taps, tap_prefix + "ffn_down.weight", act)
     out = _scaled(linear_l(layer, "w_down", act, opts.matmul_impl), layer, "w_down_scale")
     return _biased(out, layer, "b_down")
 
@@ -675,18 +704,22 @@ def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
                  cache_pos, mask, inv_freq, mscale, opts: ForwardOptions,
-                 mask_pos=None, heads: tuple[int, int] | None = None):
+                 mask_pos=None, heads: tuple[int, int] | None = None,
+                 taps: dict | None = None, tap_prefix: str = ""):
     """One block (prima_tpu/models/llama.py:1111-1193): pre- or swin
     (post-) norms, sequential or parallel attention and FFN, post norms,
     the residual scale, the dense FFN or the experts (arctic: both), and
-    last the layer's control vector."""
+    last the layer's control vector. taps reach the attention and the
+    dense FFN, never moe_ffn: as in the JAX package, no expert, router or
+    shared-expert input is tapped."""
     cvec = layer.get("cvec")
     steer = (lambda v: v) if cvec is None else (lambda v: v + cvec.to(v.dtype))
     norm = lambda v, key: model_norm(v, layer.get(key), layer.get(key + "_b"), cfg)
     attn_in = x if cfg.swin_norm else norm(x, "attn_norm")
     attn_out = attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
-                               inv_freq, mscale, opts, mask_pos, heads)
-    dense_ffn = lambda v: ffn_block(layer, v, opts, cfg.act, cfg.ffn_gated, cfg.rms_eps)
+                               inv_freq, mscale, opts, mask_pos, heads, taps, tap_prefix)
+    dense_ffn = lambda v: ffn_block(layer, v, opts, cfg.act, cfg.ffn_gated, cfg.rms_eps,
+                                    taps, tap_prefix)
     if cfg.parallel_block:
         # command-r / phi2: the FFN shares the attention's normed input;
         # gptneox-style blocks norm the layer input with their own ffn_norm
@@ -703,7 +736,7 @@ def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
         # off the layer input (ffn_norm_exps), summed
         ffn_inp = x + attn_out
         dense = ffn_block(layer, rms_norm(ffn_inp, layer["ffn_norm"], cfg.rms_eps), opts,
-                          cfg.act, True, cfg.rms_eps)
+                          cfg.act, True, cfg.rms_eps, taps, tap_prefix)
         moe = moe_ffn(layer, cfg, rms_norm(x, layer["ffn_norm_exps"], cfg.rms_eps), opts)
         return steer(moe + dense + ffn_inp)
     x = x + attn_out
@@ -733,7 +766,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
             mask_positions: torch.Tensor | None = None,
             layer_range: tuple[int, int] | None = None,
             hidden_in: torch.Tensor | None = None,
-            attn_mask: torch.Tensor | None = None):
+            attn_mask: torch.Tensor | None = None, taps: dict | None = None):
     """tokens / positions (b, s) int, kv_caches per layer (k, v) of
     (b, T, n_kv, hd), cache_pos (b,) int32 write index on the device.
     Returns (logits (b, s, V), kv_caches) — the caches are updated in place
@@ -751,7 +784,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
     the ring's windows (prima_tpu/models/llama.py:1196-1238): it takes
     hidden_in instead of the embedding when lo > 0 and returns the hidden
     states when hi < n_layers. Only the layers in range (and their caches)
-    need to be present; the others may be None."""
+    need to be present; the others may be None.
+
+    taps, a dict, collects for every matmul input the forward passes a
+    name -> (per-column f32 sum of x^2 on the device, row count) pair
+    (`_tap`), accumulated over the calls that share the dict: the hook of
+    imatrix, eval_callback and cvector_generator
+    (prima_tpu/models/llama.py:1207-1286). "output.weight" is tapped only
+    where the forward reaches the head."""
     lo, hi = layer_range or (0, cfg.n_layers)
     if lo == 0:
         x = embed(params["tok_embd"], tokens, opts.dtype)
@@ -787,19 +827,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
         m = mask_swa if mask_swa is not None and i % 2 == 0 else mask
         heads = layer_heads(cfg, i) if cfg.n_heads_arr else None
         x = decode_layer(layer, cfg, x, positions, kv_caches[i], cache_pos, m, inv_freq,
-                         mscale, opts, mask_positions, heads)
+                         mscale, opts, mask_positions, heads, taps, f"blk.{i}.")
     if return_hidden or hi < cfg.n_layers:
         return x, kv_caches
-    return lm_head(params, cfg, x, opts), kv_caches
+    return lm_head(params, cfg, x, opts, taps), kv_caches
 
 
 def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
-            opts: ForwardOptions = ForwardOptions()) -> torch.Tensor:
+            opts: ForwardOptions = ForwardOptions(), taps: dict | None = None) -> torch.Tensor:
     """The final norm and the output head over hidden states (b, s, e):
-    logits (b, s, V) in opts.logits_dtype."""
+    logits (b, s, V) in opts.logits_dtype. taps collects the head's input
+    as "output.weight", tied embeddings or not."""
     x = model_norm(x, params.get("output_norm"), params.get("output_norm_b"), cfg)
     if cfg.logit_scale != 1.0:  # minicpm / command-r / granite / grok
         x = x * float(np.float32(cfg.logit_scale))
+    _tap(taps, "output.weight", x)
     w_out = params["output"] if params.get("output") is not None else params["tok_embd"]
     logits = linear(x, w_out, opts.matmul_impl).to(opts.logits_dtype)
     if params.get("output_b") is not None:  # phi2

@@ -616,3 +616,65 @@ def test_hbm_probe_sum_is_exact(dev, nbytes):
     assert int(got) == int(hbm_probe.read_sum_plain(x))
     with pytest.raises(ValueError):
         hbm_probe.read_sum(x[1:])  # not 16-byte aligned
+
+
+def test_taps_kernel_route_matches_plain(dev):
+    """forward(taps=) on the tiny target in f32 at 4 rows (the GEMV route):
+    the same keys and counts as --matmul plain, each sum within 1e-4 of its
+    largest; the GEMV launched, and no host synchronization in the forward
+    beyond the untapped forward's."""
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+    from prima_tpu_torch.models.loader import load_model
+
+    path = os.path.join(os.path.dirname(GOLDEN), "..", "models_tiny_pair", "target.gguf")
+    m = load_model(path, device=dev, dtype=torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, m.cfg.n_vocab, (1, 4)),
+                           device=dev)
+    pos = torch.arange(4, dtype=torch.int32, device=dev)[None]
+
+    def taps(impl, tapped=True):
+        kv = init_kv_caches(m.cfg, 1, 8, torch.float32, dev)
+        out: dict = {}
+        with torch.no_grad():
+            forward(m.params, m.cfg, toks, pos, kv, torch.zeros(1, dtype=torch.int32, device=dev),
+                    ForwardOptions(matmul_impl=impl, dtype=torch.float32),
+                    taps=out if tapped else None)
+        return out
+
+    before = qm.launches.count
+    kern, plain = taps("kernel"), taps("plain")
+    assert qm.launches.count > before
+    assert sorted(kern) == sorted(plain) and len(kern) == 7 * m.cfg.n_layers + 1
+    for k, (ssq, cnt) in plain.items():
+        assert kern[k][1] == cnt == 4
+        assert (kern[k][0] - ssq).abs().max().item() <= 1e-4 * ssq.abs().max().item(), k
+
+    def syncs(fn) -> list:
+        """The synchronizing calls fn() makes, by the port's innermost line."""
+        import traceback
+        import warnings
+
+        seen, inside = [], [False]
+
+        def record(message, *a, **k):
+            if inside[0] and "synchroniz" in str(message):
+                stack = [f for f in traceback.extract_stack()[:-1]
+                         if "prima_tpu_torch" in f.filename]
+                seen.append(f"{stack[-1].filename}:{stack[-1].lineno}" if stack else "?")
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            inside[0] = True
+            try:
+                fn()
+            finally:
+                inside[0] = False
+                torch.cuda.set_sync_debug_mode(0)
+        return seen
+
+    untapped = syncs(lambda: taps("kernel", tapped=False))
+    tapped = syncs(lambda: taps("kernel"))
+    assert sorted(tapped) == sorted(untapped), (tapped, untapped)
