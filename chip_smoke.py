@@ -148,6 +148,30 @@ Phases, each of which fails the run on any error or mismatch:
                imatrix at -c 64, quantize to Q4_K_M with it and 16 greedy
                tokens of the result, quantize_stats, export_lora, gguf_split
                and its merge, gguf_hash, tokenize and gbnf_validator.
+ 11. embed   — the embedding server at full width: a BAAI/bge-base-en-v1.5-
+               shape GGUF (12 layers, 768 wide, 12 heads, FFN 3072, a WPM
+               vocabulary of 30522, 512 positions, CLS pooling) and a
+               cross-encoder/ms-marco-MiniLM-L-6-v2-shape one (6 layers, 384
+               wide, a cls / cls.output rank head), Q8_0 weights from a seed,
+               written by the port's GGUFWriter; in process, 8 texts of 8-24
+               tokens (72 qgemv launches a forward) and 4 of 128-512 (the
+               dense path, no launch), kernels against plain within 1e-4 of
+               max |v|, wall and device ms, idle share and peak memory; then
+               python -m prima_tpu_torch.server on each GGUF: /health,
+               /v1/models, the short and the long texts, the short ones as 4
+               concurrent requests (equal bits), a /v1/rerank of 8 documents
+               with top_n 3, each against the plain runtime; the embedding
+               and retrieval tools on a tiny bert, card against CPU.
+ 12. vision  — llava-1.5-7b at full width: CLIP ViT-L/14-336 (24 layers, 23
+               run) with an mlp projector into 4096 dims, f32 weights from a
+               seed, on a seeded normalized image, card against CPU within
+               1e-4 of max |out|; Llama-2-7B with centred Q4_K weights
+               generated on the card through LlavaRuntime: 5 text tokens,
+               the 576 image embeddings, 12 text tokens and 32 greedy
+               tokens, kernels against plain in f32 (logits within 1e-3 of
+               max |logit|, equal argmax and streams), then in bf16: CLIP
+               ms, the splice's prefill ms, decode tok/s, idle share, peak
+               memory, and 225 qgemv and 32 kv_store launches a decode step.
 The decoder writes K and V through the fused KV store; the byte-generic KV
 write runs where a saved slot is restored, so its launches are the server's
 (phase 3). The device-memory probe is on no serving path: its launches are
@@ -547,28 +571,39 @@ def phase_indexed_gemv(dev, report: dict, gen) -> None:
 
 def phase_kv_store(dev, report: dict, gen) -> None:
     """The fused KV store of one layer against its plain version (update_kv
-    for K and for V), exact bits for dense values, codes and scales; its
-    time beside the two launches it replaces (two kv_write for a dense
-    cache, two update_kv for a quantized one) and two index_copy_."""
+    for K and for V), exact bits for dense values, codes and scales, at the
+    8B's GQA shapes and at phase vision's Llama-2-7B rows; its time beside
+    the two launches it replaces (two kv_write for a dense cache, two
+    update_kv for a quantized one) and two index_copy_."""
     import torch
 
     from prima_tpu_torch.ops import kv_write as kvw
     from prima_tpu_torch.ops import kvquant as kvq
 
     bf16, f32 = torch.bfloat16, torch.float32
-    h, d = 8, 128
+    d = 128
+    # llava-1.5-7b's Llama-2-7B (MHA, 32 heads) at phase vision's rows: the
+    # 5-token prefix, the 576 image rows, the 12-token suffix, a decode step
+    p_img, p_suf = VISION_PREFIX, VISION_PREFIX + 576
+    p_dec = p_suf + VISION_SUFFIX
+    llava = [(f"Llama-2-7B {what}, {name} cache (vision path)", 1, n, VISION_CTX, 32,
+              "dense", dt, [p])
+             for what, n, p in (("prefix 5", VISION_PREFIX, 0), ("image 576", 576, p_img),
+                                ("suffix 12", VISION_SUFFIX, p_suf), ("decode", 1, p_dec))
+             for name, dt in (("bf16", bf16), ("f32", f32))]
     scases = []
-    for label, b, s, t_, kind, dt, pos in [
-            ("8B decode, bf16 cache (main path)", 4, 1, 8192, "dense", bf16,
+    for label, b, s, t_, h, kind, dt, pos in [
+            ("8B decode, bf16 cache (main path)", 4, 1, 8192, 8, "dense", bf16,
              [4000, 4031, 9000, 4060]),
-            ("8B decode, q8_0 cache (main path)", 4, 1, 8192, "q8_0", bf16,
+            ("8B decode, q8_0 cache (main path)", 4, 1, 8192, 8, "q8_0", bf16,
              [4000, 4031, 9000, 4060]),
-            ("8B decode, q4_0 cache", 4, 1, 8192, "q4_0", bf16, [4000, 4031, 9000, 4060]),
-            ("8B decode, f32 cache", 4, 1, 8192, "dense", f32, [4000, 4031, 9000, 4060]),
-            ("8B prefill 256 (slot row), bf16 cache", 1, 256, 8192, "dense", bf16, [3840]),
-            ("8B prefill 256 (slot row), q8_0 cache", 1, 256, 8192, "q8_0", bf16, [8000]),
-            ("8B prefill 256 (slot row), q4_0 cache", 1, 256, 8192, "q4_0", bf16, [3840]),
-            ("8B prefill 256 (slot row), f32 cache", 1, 256, 8192, "dense", f32, [8000])]:
+            ("8B decode, q4_0 cache", 4, 1, 8192, 8, "q4_0", bf16, [4000, 4031, 9000, 4060]),
+            ("8B decode, f32 cache", 4, 1, 8192, 8, "dense", f32, [4000, 4031, 9000, 4060]),
+            ("8B prefill 256 (slot row), bf16 cache", 1, 256, 8192, 8, "dense", bf16, [3840]),
+            ("8B prefill 256 (slot row), q8_0 cache", 1, 256, 8192, 8, "q8_0", bf16, [8000]),
+            ("8B prefill 256 (slot row), q4_0 cache", 1, 256, 8192, 8, "q4_0", bf16, [3840]),
+            ("8B prefill 256 (slot row), f32 cache", 1, 256, 8192, 8, "dense", f32, [8000]),
+            *llava]:
         shape = (b, t_, h, d)
 
         def make():
@@ -946,12 +981,12 @@ def _get(port: int, path: str) -> dict:
         conn.close()
 
 
-def _start_server(extra: list[str], device: str = "cuda"):
-    """python -m prima_tpu_torch.server on the tiny model with `extra` flags;
-    returns (process, port, its output lines, seconds to come up) once
-    /health answers."""
+def _start_server(extra: list[str], device: str = "cuda", model: str = TINY):
+    """python -m prima_tpu_torch.server on `model` (the tiny model) with
+    `extra` flags; returns (process, port, its output lines, seconds to come
+    up) once /health answers."""
     port = _free_port()
-    proc = subprocess.Popen([sys.executable, "-m", "prima_tpu_torch.server", "-m", TINY,
+    proc = subprocess.Popen([sys.executable, "-m", "prima_tpu_torch.server", "-m", model,
                              "--device", device, "--port", str(port), *extra], cwd=ROOT,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     out: list[str] = []
@@ -3434,16 +3469,21 @@ def weights_8b_centred(dev):
     state shares one direction, which a difference of two prompts' hidden
     states cancels, and cvector_generator's directions are such differences
     of differences."""
+    return weights_centred(dev, LLAMA3_8B, seed=10, name="8B-shape")
+
+
+def weights_centred(dev, shape: dict, seed: int, name: str):
+    """A llama of `shape` with centred Q4_K weights generated on the card."""
     import torch
 
     from prima_tpu_torch.gguf.constants import GGMLType
     from prima_tpu_torch.models.config import tiny_config
     from prima_tpu_torch.models.llama import synth_qtensor_device
 
-    cfg = tiny_config(**LLAMA3_8B)
+    cfg = tiny_config(**shape)
     e, h, kvh, hd, f = cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ff
     gen = torch.Generator(device=dev)
-    gen.manual_seed(10)
+    gen.manual_seed(seed)
     t0 = time.time()
     q = lambda rows, k: synth_qtensor_device(gen, rows, k, GGMLType.Q4_K, dev,
                                              zero_mean=True)
@@ -3456,7 +3496,7 @@ def weights_8b_centred(dev):
             "wv": q(kvh * hd, e), "wo": q(e, h * hd), "ffn_norm": ones(),
             "w_gate": q(f, e), "w_up": q(f, e), "w_down": q(e, f)})
     torch.cuda.synchronize()
-    log(f"8B-shape centred Q4_K weights generated on the card in {time.time() - t0:.1f} s")
+    log(f"{name} centred Q4_K weights generated on the card in {time.time() - t0:.1f} s")
     return cfg, params
 
 
@@ -3932,11 +3972,556 @@ def phase_quant(dev, report: dict) -> None:
         report[name]["quant_launches"] = n
 
 
+# -- phase embed ---------------------------------------------------------------
+
+# BAAI/bge-base-en-v1.5's config.json (BertModel, CLS pooling) and
+# cross-encoder/ms-marco-MiniLM-L-6-v2's (a cls / cls.output rank head)
+BGE_BASE = dict(n_layers=12, n_embd=768, n_heads=12, n_ff=3072, n_vocab=30522, n_pos=512,
+                pooling=2)
+MINILM_L6 = dict(n_layers=6, n_embd=384, n_heads=12, n_ff=1536, n_vocab=30522, n_pos=512,
+                 pooling=4)  # llama.cpp's RANK pooling
+TINY_BERT = dict(n_layers=2, n_embd=64, n_heads=4, n_ff=128, n_vocab=256, n_pos=128, pooling=1)
+EMBED_TOL = 1e-4  # max |kernel - plain| / max |plain| of a vector: phase kernels' GEMV's
+EMBED_NORM_TOL = 1e-5
+EMBED_COS_MAX = 0.99  # two distinct texts must embed apart
+BERT_SPECIALS = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+
+
+def wpm_words(n: int) -> list[str]:
+    """n distinct lower-case pseudo-words of two and three syllables."""
+    syl = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+    words = [a + b for a in syl for b in syl]
+    words += [a + b + c for a in syl for b in syl for c in syl]
+    return words[:n]
+
+
+def wpm_vocab(n_vocab: int) -> list[str]:
+    """A WordPiece vocabulary as a BERT GGUF stores it: the specials at
+    bert-base-uncased's ids, [unusedN] fillers below 100, then word-initial
+    pieces behind U+2581."""
+    toks = [BERT_SPECIALS.get(i, f"[unused{i}]") for i in range(104)]
+    return toks + ["▁" + w for w in wpm_words(n_vocab - 104)]
+
+
+def wpm_text(rng, n_words: int, n_vocab: int) -> str:
+    """A text of n_words words of the vocabulary: n_words + 2 tokens with
+    [CLS] and [SEP]."""
+    words = wpm_words(n_vocab - 104)
+    return " ".join(words[i] for i in rng.integers(0, len(words), n_words))
+
+
+def write_bert_gguf(path: str, shape: dict, seed: int, rank_head: bool = False,
+                    ftype=None) -> str:
+    """A bert GGUF of `shape` from a seed, written by the port's GGUFWriter:
+    projections and the token table in Q8_0 (the usual quant of embedding
+    GGUFs, by the port's quantize_np), the rest f32. The weights are
+    normal, so centred."""
+    import numpy as np
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.gguf.writer import GGUFWriter
+    from prima_tpu_torch.quant.quantize_np import quantize
+
+    ftype = GGMLType.Q8_0 if ftype is None else ftype
+    rng = np.random.default_rng(seed)
+    e, f, V = shape["n_embd"], shape["n_ff"], shape["n_vocab"]
+    w = GGUFWriter(path, arch="bert")
+    for key, val in {"block_count": shape["n_layers"], "embedding_length": e,
+                     "attention.head_count": shape["n_heads"], "feed_forward_length": f,
+                     "context_length": shape["n_pos"], "attention.layer_norm_epsilon": 1e-12,
+                     "attention.causal": False, "pooling_type": shape["pooling"]}.items():
+        w.add_kv(f"bert.{key}", val)
+    toks = wpm_vocab(V)
+    w.add_kv("tokenizer.ggml.model", "bert")
+    w.add_kv("tokenizer.ggml.tokens", toks)
+    w.add_kv("tokenizer.ggml.token_type", [3 if i in BERT_SPECIALS else 1 for i in range(V)])
+    for key, i in (("unknown", 100), ("cls", 101), ("seperator", 102), ("padding", 0)):
+        w.add_kv(f"tokenizer.ggml.{key}_token_id", i)
+
+    def mat(name, rows, cols, std=0.05):
+        x = rng.standard_normal((rows, cols), dtype=np.float32) * np.float32(std)
+        if ftype == GGMLType.F32:
+            w.add_tensor(name, x)
+        else:
+            w.add_tensor(name, quantize(x, ftype), ne=(cols, rows), ggml_type=ftype)
+
+    def vec(name, n, around=0.0, std=0.02):
+        w.add_tensor(name, (around + rng.standard_normal(n) * std).astype(np.float32))
+
+    def norm(name, n):
+        vec(name + ".weight", n, 1.0)
+        vec(name + ".bias", n)
+
+    mat("token_embd.weight", V, e, std=0.5)
+    w.add_tensor("token_types.weight", (rng.standard_normal((2, e)) * 0.1).astype(np.float32))
+    w.add_tensor("position_embd.weight",
+                 (rng.standard_normal((shape["n_pos"], e)) * 0.1).astype(np.float32))
+    norm("token_embd_norm", e)
+    for i in range(shape["n_layers"]):
+        p = f"blk.{i}."
+        for t in ("q", "k", "v"):
+            mat(p + f"attn_{t}.weight", e, e)
+            vec(p + f"attn_{t}.bias", e)
+        mat(p + "attn_output.weight", e, e)
+        vec(p + "attn_output.bias", e)
+        norm(p + "attn_output_norm", e)
+        mat(p + "ffn_up.weight", f, e)
+        vec(p + "ffn_up.bias", f)
+        mat(p + "ffn_down.weight", e, f)
+        vec(p + "ffn_down.bias", e)
+        norm(p + "layer_output_norm", e)
+    if rank_head:
+        w.add_tensor("cls.weight", (rng.standard_normal((e, e)) * 0.05).astype(np.float32))
+        vec("cls.bias", e)
+        w.add_tensor("cls.output.weight", (rng.standard_normal((1, e)) * 0.2).astype(np.float32))
+        vec("cls.output.bias", 1)
+    w.write()
+    return path
+
+
+def bert_forward_bytes(path: str) -> int:
+    """The bytes one forward of a short text reads at least: every
+    projection's blocks once (the token table only by rows)."""
+    from prima_tpu_torch.gguf.reader import GGUFModel
+
+    m = GGUFModel.open(path)
+    n = sum(ti.nbytes for name, ti in m.tensors.items()
+            if name.startswith("blk.") and name.endswith(".weight") and ti.n_elements > 4096)
+    m.close()
+    return n
+
+
+def embed_profile(rt, texts: list) -> dict:
+    """profiled_wall of rt.embed(texts): wall ms, launches, device busy ms,
+    idle share."""
+    r = profiled_wall(lambda: (len(texts), rt.embed(texts)))
+    del r["result"], r["same_tokens_profiled"]
+    return dict(r, inputs=len(texts))
+
+
+def _vec_err(got, want) -> float:
+    """max |got - want| / max |want| over rows."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {got.shape} against {want.shape}")
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _server_launches(port: int, before: Counter | None = None) -> Counter:
+    """The server's kernel launch counts from /props, less `before`."""
+    now = Counter(_get(port, "/props")["kernel_launches"])
+    return now - before if before is not None else now
+
+
+def embed_server(path: str, rt, short: list, long: list) -> dict:
+    """The embedding model behind python -m prima_tpu_torch.server: /health,
+    /v1/models, the short inputs in one request, the long ones in one, the
+    short ones again as 4 concurrent requests of 2; each vector against the
+    plain runtime, unit norms, distinct texts apart, concurrent answers
+    equal to the sequential ones to the bit; each request's launches read
+    from the server's /props (qgemv 6 a layer for each short input, none
+    for a long one)."""
+    import numpy as np
+
+    n_proj = 6 * BGE_BASE["n_layers"]
+    proc, port, out, up_s = _start_server([], model=path)
+    try:
+        r = {"up_s": up_s, "health": _get(port, "/health"), "models": _get(port, "/v1/models")}
+        if r["health"] != {"status": "ok"} or r["models"]["data"][0]["id"] != "prima-tpu":
+            raise AssertionError(f"embeddings server: {r}")
+        vecs, launches = {}, Counter()
+        for key, texts in (("short", short), ("long", long)):
+            before = _server_launches(port)
+            t0 = time.perf_counter()
+            resp = _post(port, "/v1/embeddings", {"input": texts})
+            wall = (time.perf_counter() - t0) * 1e3
+            ran = _server_launches(port, before)
+            got = np.asarray([d["embedding"] for d in resp["data"]], np.float32)
+            want = rt.embed(texts, matmul_impl="plain")
+            vecs[key] = resp["data"]
+            r[key] = {"inputs": len(texts), "wall_ms": wall,
+                      "embeddings_per_s": len(texts) / wall * 1e3,
+                      "max_rel_err_vs_plain": _vec_err(got, want),
+                      "max_norm_err": float(np.abs(np.linalg.norm(got, axis=1) - 1).max()),
+                      "usage": resp["usage"], "launches": dict(ran)}
+            if (r[key]["max_rel_err_vs_plain"] > EMBED_TOL
+                    or r[key]["max_norm_err"] > EMBED_NORM_TOL):
+                raise AssertionError(f"/v1/embeddings {key}: {r[key]}")
+            expect = {"qgemv": n_proj * len(texts)} if key == "short" else {}
+            if dict(ran) != expect:
+                raise AssertionError(f"/v1/embeddings {key} launched {dict(ran)}, want {expect}")
+            launches.update(ran)
+        g = np.asarray([d["embedding"] for d in vecs["short"]])
+        cos = g @ g.T
+        r["max_cosine_distinct"] = float(np.max(cos - 2 * np.eye(len(g))))
+        if r["max_cosine_distinct"] >= EMBED_COS_MAX:
+            raise AssertionError(f"distinct texts embed alike: cosine {r['max_cosine_distinct']}")
+        bodies = [{"input": short[i:i + 2]} for i in range(0, len(short), 2)]
+        before = _server_launches(port)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+            conc = list(ex.map(lambda b: _post(port, "/v1/embeddings", b), bodies))
+        wall = (time.perf_counter() - t0) * 1e3
+        ran = _server_launches(port, before)
+        r["concurrent"] = {"requests": len(bodies), "wall_ms": wall, "launches": dict(ran),
+                           "equal_to_sequential": [d["embedding"] for c in conc for d in c["data"]]
+                           == [d["embedding"] for d in vecs["short"]]}
+        if not r["concurrent"]["equal_to_sequential"]:
+            raise AssertionError("concurrent /v1/embeddings answers differ from sequential ones")
+        if dict(ran) != {"qgemv": n_proj * len(short)}:
+            raise AssertionError(f"concurrent /v1/embeddings launched {dict(ran)}")
+        launches.update(ran)
+        r["launches"] = dict(launches)
+        return r
+    finally:
+        _stop(proc)
+
+
+def rerank_server(path: str, rt, rng) -> dict:
+    """The reranker behind the server: /v1/rerank of a query against 8
+    documents with top_n 3; scores against the plain runtime's, same order;
+    the request's launches from /props (qgemv 6 a layer for each pair, every
+    pair under 32 tokens)."""
+    import numpy as np
+
+    V = MINILM_L6["n_vocab"]
+    query = wpm_text(rng, 4, V)
+    docs = [wpm_text(rng, int(n), V) for n in rng.integers(6, 20, 8)]
+    enc = lambda t: len(rt.tokenizer.encode(t, add_special=False))
+    pair_tokens = [enc(query) + enc(d) + 4 for d in docs]  # [CLS] q [SEP] [SEP] d [SEP]
+    if max(pair_tokens) >= 32:
+        raise AssertionError(f"rerank pairs miss the GEMV route: {pair_tokens} tokens")
+    proc, port, out, up_s = _start_server([], model=path)
+    try:
+        before = _server_launches(port)
+        t0 = time.perf_counter()
+        resp = _post(port, "/v1/rerank", {"query": query, "documents": docs, "top_n": 3})
+        wall = (time.perf_counter() - t0) * 1e3
+        ran = _server_launches(port, before)
+    finally:
+        _stop(proc)
+    want = rt.rerank(query, docs, matmul_impl="plain")
+    order = [int(i) for i in np.argsort(-want, kind="stable")[:3]]
+    got = {x["index"]: x["relevance_score"] for x in resp["results"]}
+    err = max(abs(got[i] - float(want[i])) for i in got) / float(np.abs(want).max())
+    expect = {"qgemv": 6 * MINILM_L6["n_layers"] * len(docs)}
+    r = {"up_s": up_s, "wall_ms": wall, "documents": len(docs), "pair_tokens": pair_tokens,
+         "results": resp["results"], "plain_top3": order, "max_rel_err_vs_plain": err,
+         "scores_plain": [float(x) for x in want], "launches": dict(ran)}
+    if list(got) != order or err > EMBED_TOL:
+        raise AssertionError(f"/v1/rerank against plain: {r}")
+    if dict(ran) != expect:
+        raise AssertionError(f"/v1/rerank launched {dict(ran)}, want {expect}")
+    return r
+
+
+def embed_tools(work: str) -> dict:
+    """The embedding and retrieval tools on a tiny bert GGUF, the card
+    against --device cpu (f32): equal text, printed numbers within 1e-5;
+    the card's launch counts."""
+    import re
+
+    import numpy as np
+
+    from prima_tpu_torch.tools import embedding, retrieval
+
+    path = write_bert_gguf(os.path.join(work, "tiny_bert.gguf"), TINY_BERT, seed=5)
+    rng = np.random.default_rng(6)
+    V = TINY_BERT["n_vocab"]
+    ctx = os.path.join(work, "context.txt")
+    with open(ctx, "w") as f:
+        f.write("\n".join(wpm_text(rng, int(n), V) for n in rng.integers(4, 12, 12)))
+    prompts = "\\n".join(wpm_text(rng, 5, V) for _ in range(3))
+    runs = [("embedding", embedding.main, ["-m", path, "-p", prompts]),
+            ("embedding_json+", embedding.main, ["-m", path, "-p", prompts,
+                                                 "--embd-output-format", "json+"]),
+            ("embedding_cls_array", embedding.main, ["-m", path, "-p", prompts, "--pooling",
+                                                     "cls", "--embd-output-format", "array"]),
+            ("retrieval", retrieval.main, ["-m", path, "--context-file", ctx, "--chunk-size",
+                                           "40", "--top-k", "3", "-q", wpm_text(rng, 3, V)])]
+    num = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
+    r, counters = {}, zero_counts()
+    out = {dev: {name: tool_call(main, args + ["--device", dev]) for name, main, args in runs}
+           for dev in ("cuda", "cpu")}
+    for name, *_ in runs:
+        (rc, a, err), (rc2, b, _) = out["cuda"][name], out["cpu"][name]
+        x = [float(v) for v in num.findall(a)]
+        y = [float(v) for v in num.findall(b)]
+        worst = max((abs(p - q) for p, q in zip(x, y)), default=0.0)
+        same = (rc == rc2 == 0 and num.sub("#", a) == num.sub("#", b) and len(x) == len(y) > 0
+                and worst <= 1e-5)
+        r[name] = {"same": same, "max_abs_diff": worst, "stdout": a[-300:]}
+        if not same:
+            raise AssertionError(f"{name} on the card differs from the CPU: {a[-600:]!r} "
+                                 f"against {b[-600:]!r} {err[-600:]}")
+    r["launches"] = read_counts(counters)  # the CPU runs launch nothing
+    if not r["launches"].get("qgemv"):
+        raise AssertionError(f"the embedding tools ran without qgemv: {r['launches']}")
+    return r
+
+
+def phase_embed(dev, report: dict) -> dict:
+    """The embedding server at full width: a bge-base-en-v1.5-shape and an
+    ms-marco-MiniLM-L-6-v2-shape GGUF (Q8_0 from a seed) served by python
+    -m prima_tpu_torch.server, with the launches each request made read
+    from the server (72 qgemv a short forward of BERT-base); the same
+    forwards in process for their device time and idle share; the
+    embedding tools, card against CPU. Returns the launch counts of the
+    server and the tools."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.bert import BertModelRuntime
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "embed")
+    os.makedirs(work, exist_ok=True)
+    r: dict = {}
+    t0 = time.time()
+    bge = write_bert_gguf(os.path.join(work, "bge-base.gguf"), BGE_BASE, seed=21)
+    rr = write_bert_gguf(os.path.join(work, "minilm-l6-rerank.gguf"), MINILM_L6, seed=22,
+                         rank_head=True)
+    r["write_s"] = time.time() - t0
+    rng = np.random.default_rng(23)
+    V = BGE_BASE["n_vocab"]
+    short = [wpm_text(rng, int(n) - 2, V) for n in rng.integers(8, 25, 8)]
+    long = [wpm_text(rng, int(n) - 2, V) for n in (128, 256, 384, 512)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    rt = BertModelRuntime.load(bge, device=dev)
+    n_short = [len(rt.tokenizer.encode(t)) for t in short]
+    n_long = [len(rt.tokenizer.encode(t)) for t in long]
+    r["tokens"] = {"short": n_short, "long": n_long}
+    if max(n_short) >= 32 or min(n_long) < 128:
+        raise AssertionError(f"the texts miss their routes: {r['tokens']}")
+    t0 = time.time()
+    r["server"] = embed_server(bge, rt, short, long)
+    log(f"embed server: {time.time() - t0:.1f} s")
+    rt.embed(short[:1])  # warm-up
+    r["profile_short"] = embed_profile(rt, short)
+    r["profile_long"] = embed_profile(rt, long)
+    nbytes = bert_forward_bytes(bge)
+    r["bound_ms_short_forward"] = nbytes / HBM_BYTES_PER_S * 1e3
+    r["bound_bytes_short_forward"] = nbytes
+    r["peak_gib_in_process"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del rt
+    gc.collect()
+    rrt = BertModelRuntime.load(rr, device=dev)
+    t0 = time.time()
+    r["rerank"] = rerank_server(rr, rrt, rng)
+    log(f"embed rerank: {time.time() - t0:.1f} s")
+    del rrt
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["tools"] = embed_tools(work)
+    launches = Counter(r["server"]["launches"])
+    launches.update(r["rerank"]["launches"])
+    launches.update(r["tools"]["launches"])
+    r["launches"] = dict(launches)
+    s, lg = r["server"]["short"], r["server"]["long"]
+    log(f"embed: bge-base short x{len(short)} ({n_short} tokens) {s['wall_ms']:.1f} ms "
+        f"wall at the server, {s['embeddings_per_s']:.1f} emb/s; in process "
+        f"{r['profile_short']['wall_ms']:.1f} ms wall, {r['profile_short']['device_busy_ms']:.2f} "
+        f"ms device, idle {r['profile_short']['device_idle_share']:.3f}; long x{len(long)} "
+        f"{lg['wall_ms']:.1f} ms, {r['profile_long']['device_busy_ms']:.2f} ms device, idle "
+        f"{r['profile_long']['device_idle_share']:.3f}; bound a short forward "
+        f"{r['bound_ms_short_forward']:.4f} ms; server vs plain short "
+        f"{s['max_rel_err_vs_plain']:.2e} long {lg['max_rel_err_vs_plain']:.2e}; distinct cosine <= {r['server']['max_cosine_distinct']:.4f}; rerank err "
+        f"{r['rerank']['max_rel_err_vs_plain']:.2e}; peak {r['peak_gib_in_process']:.2f} GiB; "
+        f"launches {r['launches']}")
+    report["embed"] = r
+    for name, n in launches.items():
+        report[name]["embed_launches"] = n
+    return dict(launches)
+
+
+# -- phase vision ----------------------------------------------------------------
+
+# llava-hf/llava-1.5-7b-hf: the openai/clip-vit-large-patch14-336 tower (24
+# layers, 23 run), an mlp projector into Llama-2-7B (MHA, FFN 11008)
+CLIP_L336 = dict(image_size=336, patch_size=14, n_embd=1024, n_ff=4096, n_layers=24,
+                 n_heads=16, eps=1e-5, proj_dim=768, use_gelu=False, projector_type="mlp")
+LLAMA2_7B = dict(n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=32, head_dim=128, n_ff=11008,
+                 n_vocab=32000, n_ctx_train=4096, rope_base=10000.0, rope_dim=128, rms_eps=1e-5)
+VISION_PREFIX, VISION_SUFFIX, VISION_TOKENS, VISION_CTX = 5, 12, 32, 1024
+CLIP_TOL = 1e-4  # card against CPU, f32: max |err| / max |out|
+
+
+def clip_params_device(cfg, dev, seed: int, mm_out: int) -> dict:
+    """CLIP ViT-L/14-336 and its mlp projector in f32 on the card, from a
+    seeded generator (no patch bias or post-LN, as llava-1.5's mmproj)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rn = lambda *s, std=0.02: torch.randn(s, generator=gen, device=dev) * std
+    e, f = cfg.n_embd, cfg.n_ff
+    n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    p = {"patch_embd": rn(e, 3, cfg.patch_size, cfg.patch_size), "patch_bias": None,
+         "class_embd": rn(e), "pos_embd": rn(n_pos, e), "pre_ln_w": 1 + rn(e),
+         "pre_ln_b": rn(e), "post_ln_w": None, "post_ln_b": None, "layers": []}
+    for _ in range(cfg.n_layers):
+        layer = {"ln1_w": 1 + rn(e), "ln1_b": rn(e), "ln2_w": 1 + rn(e), "ln2_b": rn(e),
+                 "ffi_w": rn(f, e), "ffi_b": rn(f), "ffo_w": rn(e, f), "ffo_b": rn(e)}
+        for n in ("q", "k", "v", "o"):
+            layer[n + "_w"], layer[n + "_b"] = rn(e, e), rn(e)
+        p["layers"].append(layer)
+    p.update({"mm.0.weight": rn(mm_out, e), "mm.0.bias": rn(mm_out),
+              "mm.2.weight": rn(mm_out, mm_out), "mm.2.bias": rn(mm_out)})
+    return p
+
+
+def llava_steps(rt, prefix: list, embeds, suffix: list, n: int) -> tuple[list, list]:
+    """prefix tokens, the image's embeddings and suffix tokens through
+    LlavaRuntime, then n greedy steps: (tokens, each step's logits)."""
+    import numpy as np
+
+    rt.eval_tokens(prefix)
+    rt.eval_embeds(embeds)
+    logits = rt.eval_tokens(suffix)
+    toks, seen = [], [logits]
+    for _ in range(n):
+        toks.append(int(np.argmax(logits)))
+        logits = rt.eval_tokens([toks[-1]])
+        seen.append(logits)
+    return toks, seen
+
+
+def phase_vision(dev, report: dict) -> dict:
+    """llava-1.5-7b at full width: CLIP ViT-L/14-336 with an mlp projector
+    (f32, seeded) on a seeded normalized image, card against CPU; Llama-2-7B
+    (centred Q4_K generated on the card) through LlavaRuntime: 5 text
+    tokens, the 576 image embeddings, 12 text tokens and 32 greedy tokens,
+    kernels against plain in f32 (logits, top 5 ids and streams), then in
+    bf16 timed with its launch counts (225 qgemv and 32 kv_store a decode
+    step), its device time and idle share over the same 32 steps, and peak
+    memory. Returns the launch counts."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.clip import ClipVisionConfig, clip_encode_image
+    from prima_tpu_torch.models.llama import ForwardOptions, init_kv_caches
+    from prima_tpu_torch.sampling import Sampler, SamplerParams
+    from prima_tpu_torch.tools.llava_cli import LlavaRuntime
+
+    r: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    ccfg = ClipVisionConfig(**CLIP_L336)
+    cparams = clip_params_device(ccfg, dev, seed=31, mm_out=LLAMA2_7B["n_embd"])
+    px = np.random.default_rng(32).standard_normal(
+        (3, ccfg.image_size, ccfg.image_size)).astype(np.float32)
+    pxd = torch.from_numpy(px).to(dev)
+    with torch.no_grad():
+        emb = clip_encode_image(cparams, ccfg, pxd)
+        r["clip_ms"] = time_ms(lambda x: clip_encode_image(cparams, ccfg, x), [(pxd,)], reps=5,
+                               per_rep=1, warmup=1)
+        t0 = time.time()
+        cpu = clip_encode_image(params_to(cparams, "cpu"), ccfg, torch.from_numpy(px))
+        r["clip_cpu_s"] = time.time() - t0
+    r["clip_rows"] = list(emb.shape)
+    r["clip_err_vs_cpu"] = _vec_err(emb.cpu().numpy(), cpu.numpy())
+    if r["clip_err_vs_cpu"] > CLIP_TOL or list(emb.shape) != [576, LLAMA2_7B["n_embd"]]:
+        raise AssertionError(f"CLIP on the card against the CPU: {r}")
+    del cparams, cpu
+    gc.collect()
+    cfg, params = weights_centred(dev, LLAMA2_7B, seed=33, name="Llama-2-7B-shape")
+    model = types.SimpleNamespace(cfg=cfg, params=params)
+    rng = np.random.default_rng(34)
+    prefix = rng.integers(0, cfg.n_vocab, VISION_PREFIX).tolist()
+    suffix = rng.integers(0, cfg.n_vocab, VISION_SUFFIX).tolist()
+    img = emb.float()
+    runs = {}
+    for impl in ("kernel", "plain"):  # f32 activations and caches
+        rt = LlavaRuntime(model, max_seq=VISION_CTX, matmul_impl=impl, device=dev)
+        rt.opts = ForwardOptions(matmul_impl=impl, dtype=torch.float32)
+        rt.kv = init_kv_caches(cfg, 1, VISION_CTX, torch.float32, dev)
+        runs[impl] = llava_steps(rt, prefix, img, suffix, VISION_TOKENS)
+        del rt
+        gc.collect()
+    (kt, kl), (pt, pl) = runs["kernel"], runs["plain"]
+    errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(kl, pl)]
+    argmax_equal = all(int(np.argmax(a)) == int(np.argmax(b)) for a, b in zip(kl, pl))
+    # the random model repeats one token, so the stream alone shows little:
+    # each step's top 5 ids must match too, unless plain's 5th and 6th
+    # logits lie closer than the two runs' difference
+    top5_tied = top5_differ = 0
+    for a, b in zip(kl, pl):
+        ib = np.argsort(-b)[:6]
+        if b[ib[4]] - b[ib[5]] <= 2 * np.abs(a - b).max():
+            top5_tied += 1
+        elif set(np.argsort(-a)[:5]) != set(ib[:5]):
+            top5_differ += 1
+    r["f32"] = {"tokens_equal": kt == pt, "argmax_equal": argmax_equal,
+                "top5_steps_differ": top5_differ, "top5_steps_tied": top5_tied,
+                "max_rel_logit_err": max(errs), "steps": len(errs), "tokens": kt}
+    if not (kt == pt and argmax_equal) or top5_differ or max(errs) > LOGITS_TOL:
+        raise AssertionError(f"llava kernels against plain (f32): {r['f32']}, plain {pt}")
+    # bf16, as LlavaRuntime runs by default
+    rt = LlavaRuntime(model, max_seq=VISION_CTX, device=dev)
+    counters = zero_counts()
+    rt.eval_tokens(prefix)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt.eval_embeds(img)
+    torch.cuda.synchronize()
+    r["splice_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    logits = rt.eval_tokens(suffix)
+    r["prefill_launches"] = read_counts(counters)
+    pos0 = rt.pos
+
+    def decode_window():  # the same 32 greedy steps from the same cache rows
+        rt.pos = pos0
+        return (rt.generate(Sampler(SamplerParams(temp=0.0)), VISION_TOKENS, logits, set()),)
+
+    pw = profiled_wall(decode_window)
+    out, wall, decode = pw["result"][0], pw["wall_ms"] / 1e3, pw["launches"]
+    r["bf16"] = {"tokens": out, "decode_wall_ms": pw["wall_ms"],
+                 "decode_tok_s": len(out) / wall, "launches": decode,
+                 "same_tokens_profiled": pw["same_tokens_profiled"]}
+    want = {"qgemv": 225 * VISION_TOKENS, "kv_store": 32 * VISION_TOKENS}
+    if len(out) != VISION_TOKENS or decode != want or not pw["same_tokens_profiled"]:
+        raise AssertionError(f"llava decode: {len(out)} tokens, launches {decode}, want "
+                             f"{want}; {r['bf16']}")
+    busy = pw["device_busy_ms"] / len(out)
+    step_wall = pw["wall_ms"] / len(out)
+    r["bf16"].update({"device_ms_a_step": busy, "wall_ms_a_step": step_wall,
+                      "device_idle_share": pw["device_idle_share"],
+                      "device_ms": pw["device_ms"], "top_kernels_ms": pw["top_kernels_ms"]})
+    # a decode step's byte bound: every projection and the head read once
+    qts = [layer[k] for layer in params["layers"] for k in GGUF_NAMES] + [params["output"]]
+    step_bytes = sum(a.numel() * a.element_size() for qt in qts for a in qt.tensors()
+                     if a is not None)
+    r["bf16"]["bound_ms_a_step"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    r["bf16"]["weight_bytes_a_step"] = step_bytes
+    r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = Counter(r["prefill_launches"])
+    launches.update(decode)
+    r["launches"] = dict(launches)
+    log(f"vision: CLIP-L/336 {r['clip_ms']:.2f} ms (card vs CPU {r['clip_err_vs_cpu']:.2e}, "
+        f"CPU {r['clip_cpu_s']:.1f} s); splice prefill {r['splice_prefill_ms']:.1f} ms; decode "
+        f"{r['bf16']['decode_tok_s']:.2f} tok/s, {busy:.2f} ms device in {step_wall:.2f} ms a "
+        f"step (bound {r['bf16']['bound_ms_a_step']:.3f}), idle "
+        f"{r['bf16']['device_idle_share']:.3f}; f32 kernels vs plain "
+        f"{r['f32']['max_rel_logit_err']:.2e} over {r['f32']['steps']} steps, tokens equal, "
+        f"top 5 equal ({r['f32']['top5_steps_tied']} steps tied); "
+        f"peak {r['peak_gib']:.2f} GiB; launches {r['launches']}")
+    del rt, params, model, emb, img
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["vision"] = r
+    for name, n in launches.items():
+        report[name]["vision_launches"] = n
+    return dict(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,server,full,long,spec,ring,moe,tools,quant",
+    ap.add_argument("--phases",
+                    default="build,kernels,server,full,long,spec,ring,moe,tools,quant,embed,vision",
                     help="comma-separated subset of build,kernels,server,full,long,spec,ring,"
-                         "moe,tools,quant")
+                         "moe,tools,quant,embed,vision")
     # rank 1 of phase ring's full-width ring runs this script with these
     ap.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
@@ -4055,6 +4640,14 @@ def main() -> int:
         t0 = time.time()
         phase_quant(dev, report)
         log(f"quant: {time.time() - t0:.1f} s")
+    # the qgemv and kv_store counts of the embedding server's and llava's
+    # runs join the long phase's
+    for phase, fn in (("embed", phase_embed), ("vision", phase_vision)):
+        if phase in phases:
+            t0 = time.time()
+            for name, n in fn(dev, report).items():
+                launches[name] = (launches.get(name) or 0) + n
+            log(f"{phase}: {time.time() - t0:.1f} s")
     launches["kv_write"] = report.get("server_long_context", {}).get(
         "launches", {}).get("kv_write")
     launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")

@@ -286,7 +286,9 @@ def _load_layer(m: GGUFModel, cfg: ModelConfig, i: int, device, dtype, fuse: boo
 
 
 def params_from_numpy(tree, device):
-    """The JAX package's params after jax.device_get -> the port's params.
+    """The JAX package's params after jax.device_get -> the port's params:
+a decoder's, an encoder's (models/bert.py, QTensor leaves where
+quantized) or an mmproj's (models/clip.py, all dense).
 
     Each JAX QTensor comes as a plain dict of its numpy fields and metadata
     (qs, scales, mins, d, dmin, sub, layout, q_offset, shape, kperm, gsub,
@@ -766,7 +768,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
             mask_positions: torch.Tensor | None = None,
             layer_range: tuple[int, int] | None = None,
             hidden_in: torch.Tensor | None = None,
-            attn_mask: torch.Tensor | None = None, taps: dict | None = None):
+            attn_mask: torch.Tensor | None = None, taps: dict | None = None,
+            inputs_embeds: torch.Tensor | None = None):
     """tokens / positions (b, s) int, kv_caches per layer (k, v) of
     (b, T, n_kv, hd), cache_pos (b,) int32 write index on the device.
     Returns (logits (b, s, V), kv_caches) — the caches are updated in place
@@ -791,9 +794,17 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
     (`_tap`), accumulated over the calls that share the dict: the hook of
     imatrix, eval_callback and cvector_generator
     (prima_tpu/models/llama.py:1207-1286). "output.weight" is tapped only
-    where the forward reaches the head."""
+    where the forward reaches the head.
+
+    inputs_embeds (b, s, e) replaces the token embedding and everything
+    after it up to the first layer (gemma's scale, learned positions,
+    bloom's embedding norm): the multimodal path, where image patch
+    embeddings are spliced into the sequence
+    (prima_tpu/models/llama.py:1209,1222-1223)."""
     lo, hi = layer_range or (0, cfg.n_layers)
-    if lo == 0:
+    if lo == 0 and inputs_embeds is not None:
+        x = inputs_embeds.to(opts.dtype)
+    elif lo == 0:
         x = embed(params["tok_embd"], tokens, opts.dtype)
         if cfg.embd_scale != 1.0:  # gemma: sqrt(n_embd)
             x = x * float(np.float32(cfg.embd_scale))

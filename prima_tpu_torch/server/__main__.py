@@ -7,7 +7,9 @@ ring: every rank runs the command with its --rank, rank 0 answers HTTP
 over a TcpRingEngine and the others serve their windows (-lw, -k, -ngl as
 in the CLI). The mesh options of the JAX server (--pp / --tp / --dp) are
 not carried yet and raise a "not yet ported" error instead of being
-ignored.
+ignored. A bert / nomic-bert GGUF is served by serve_embeddings
+(/v1/embeddings, /v1/rerank). `-c 0` takes the GGUF's context_length key
+(2048 without it) before any branch, as the JAX server does.
 """
 
 from __future__ import annotations
@@ -115,8 +117,48 @@ def _unported(args) -> str | None:
     return None
 
 
+def probe_gguf(args) -> str:
+    """The GGUF's arch, read before anything loads; `-c 0` becomes the
+    raw `{arch}.context_length` key, or 2048 without it, for every branch
+    (prima_tpu/server/__main__.py:114-121). --override-kv does not reach
+    this key, as it does not in the JAX server."""
+    from ..gguf.reader import GGUFModel
+
+    probe = GGUFModel.open(args.model)
+    arch = probe.arch
+    if args.ctx_size == 0:  # -c 0: the model's training context (common.cpp)
+        # read the KV directly: encoder archs (bert) have no decoder config
+        args.ctx_size = int(probe.get(f"{arch}.context_length") or 2048)
+    probe.close()
+    return arch
+
+
+def _embeddings_main(args) -> int:
+    """An encoder GGUF: /v1/embeddings and /v1/rerank only."""
+    from ..models.bert import BertModelRuntime
+    from .app import serve_embeddings
+
+    rt = BertModelRuntime.load(args.model, device=args.device)
+    rt.embed(["warmup"], matmul_impl=args.matmul)
+    httpd = serve_embeddings(rt, args.host, args.port, args.alias, args.matmul)
+    print(f"embeddings server on http://{args.host}:{args.port}", file=sys.stderr,
+          flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    print(f"loading {args.model} ...", file=sys.stderr)
+    # bert and nomic-bert serve embeddings; jina-bert-v2 falls through to
+    # the decoder loader, as in the JAX server
+    if probe_gguf(args) in ("bert", "nomic-bert"):
+        return _embeddings_main(args)
     what = _unported(args)
     if what is not None:
         print(f"{what} is not yet ported to prima_tpu_torch", file=sys.stderr)
@@ -133,7 +175,6 @@ def main(argv=None) -> int:
     from ..runtime.engine import Engine
     from .app import serve
 
-    print(f"loading {args.model} ...", file=sys.stderr)
     lora_specs = [(p, 1.0) for p in args.lora] + [(p, float(s)) for p, s in args.lora_scaled]
     # LoRA adapters target the unfused tensor names: never fuse with one
     model = load_model(args.model, device=args.device, fuse=args.fuse and not lora_specs,
@@ -145,7 +186,7 @@ def main(argv=None) -> int:
         yarn_beta_fast=args.yarn_beta_fast, yarn_beta_slow=args.yarn_beta_slow)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     kv_dtype = dtypes.get(args.cache_type, args.cache_type)  # or "q8_0" / "q4_0"
-    ctx_size = args.ctx_size or model.cfg.n_ctx_train  # -c 0: training context
+    ctx_size = args.ctx_size
     opts = ForwardOptions(matmul_impl=args.matmul, dtype=dtypes[args.dtype])
     engine = Engine(model.cfg, model.params, n_slots=args.parallel, max_seq=ctx_size,
                     n_batch=args.batch_size, opts=opts,

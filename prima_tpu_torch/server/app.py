@@ -2,7 +2,8 @@
 
 Counterpart of prima_tpu/server/app.py for the single-device path, with
 LoRA adapters (/lora-adapters), grammar / JSON-schema sampling and
-speculative decoding with a draft model (`spec`).
+speculative decoding with a draft model (`spec`); `serve_embeddings`
+serves a BERT-arch encoder (/v1/embeddings, /v1/rerank).
 
 The llama-server analogue (reference examples/server/server.cpp): slot-based
 continuous batching over the Engine, SSE streaming, /v1/chat/completions,
@@ -546,3 +547,65 @@ def serve(model: LoadedModel, engine: Engine, host: str = "127.0.0.1", port: int
     httpd = ThreadingHTTPServer((host, port), make_handler(ctx))
     return httpd, ctx
 
+
+
+def serve_embeddings(rt, host: str = "127.0.0.1", port: int = 8080,
+                     alias: str = "prima-tpu",
+                     matmul_impl: str = "kernel") -> ThreadingHTTPServer:
+    """Embedding-model server (BERT arch, models/bert.py): /v1/embeddings,
+    /v1/rerank, /v1/models and /health, the reference's llama-server
+    --embeddings / --reranking mode, and /props with the kernels' launch
+    counts, as the decoder server gives them. Handler threads call the
+    runtime directly; on the card their work shares one CUDA stream."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _json(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/health":
+                return self._json(200, {"status": "ok"})
+            if self.path == "/v1/models":
+                return self._json(200, {"object": "list", "data": [
+                    {"id": alias, "object": "model"}]})
+            if self.path == "/props":
+                return self._json(200, {"kernel_launches": kernel_launches()})
+            return self._json(404, {"error": "not found"})
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(n) or b"{}")
+            if self.path in ("/v1/rerank", "/rerank", "/v1/reranking"):
+                # rank-head scoring when the model carries a classifier
+                # (RANK pooling); cosine of the embeddings otherwise
+                query = body.get("query", "")
+                docs = list(body.get("documents") or [])
+                scores = rt.rerank(query, docs, matmul_impl=matmul_impl)
+                order = sorted(range(len(docs)), key=lambda i: -scores[i])
+                top_n = int(body.get("top_n", len(docs)) or len(docs))
+                return self._json(200, {
+                    "model": alias, "object": "list",
+                    "results": [{"index": i, "relevance_score": float(scores[i])}
+                                for i in order[:top_n]],
+                    "usage": {"prompt_tokens": 0, "total_tokens": 0},
+                })
+            if self.path not in ("/v1/embeddings", "/embeddings", "/embedding"):
+                return self._json(404, {"error": "not found"})
+            inputs = body.get("input") or body.get("content") or ""
+            if isinstance(inputs, str):
+                inputs = [inputs]
+            vecs = rt.embed(list(inputs), matmul_impl=matmul_impl)
+            data = [{"object": "embedding", "index": i,
+                     "embedding": [float(x) for x in v]} for i, v in enumerate(vecs)]
+            self._json(200, {"object": "list", "data": data, "model": alias,
+                             "usage": {"prompt_tokens": 0, "total_tokens": 0}})
+
+    return ThreadingHTTPServer((host, port), Handler)

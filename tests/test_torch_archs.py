@@ -65,7 +65,30 @@ ARCHS = {
     # jais: ALiBi, fused biased qkv, a gated FFN with a biased gate
     "jais": dict(ln_bias=True, fused_qkv=True, qkv_bias=True, bo=True, ffn_bias=True,
                  gate_bias=True),
+    # llama-like families with their own arch name, and llama's RoPE scalings
+    # (test_torch_archs_more.py)
+    "qwen2": dict(qkv_bias=True),
+    "gemma": dict(tied=True),
+    "xverse": dict(),
+    "baichuan": dict(),
+    # Baichuan-13B: 40 layers take ALiBi in place of RoPE
+    "baichuan-40l": dict(arch="baichuan", n_layers=40),
+    "refact": dict(),
+    "plamo": dict(no_ffn_norm=True),
+    "internlm2": dict(),
+    "llama-yarn": dict(arch="llama", kv={"rope.scaling.type": "yarn", "rope.scaling.factor": 4.0,
+                                         "rope.scaling.original_context_length": 128}),
+    "llama-linear": dict(arch="llama", kv={"rope.scaling.type": "linear",
+                                           "rope.scaling.factor": 2.0}),
+    # LayerNorm families (test_torch_archs_ln.py)
+    "starcoder": dict(ln_bias=True, fused_qkv=True, qkv_bias=True, bo=True, ffn="plain",
+                      ffn_bias=True, pos_embd=True),
+    "orion": dict(ln_bias=True),
+    "codeshell": dict(ln_bias=True, fused_qkv=True, qkv_bias=True, bo=True, ffn="plain",
+                      ffn_bias=True),
     # mixture of experts (test_torch_moe.py)
+    "granitemoe": dict(moe=(4, 2), kv={"embedding_scale": 2.0, "residual_scale": 0.5,
+                                       "logit_scale": 4.0, "attention.scale": 0.2}),
     "mixtral": dict(arch="llama", moe=(4, 2)),
     "qwen2moe": dict(moe=(4, 2), qkv_bias=True, shexp=True),
     "grok": dict(moe=(4, 2), post_norms=("attn_out_norm", "layer_out_norm")),
@@ -88,6 +111,7 @@ def write_model(path, name: str, ftype=F32, n_embd: int = 64, n_heads: int = 4,
     arch = spec.get("arch", name)
     rng = np.random.default_rng(seed)
     hd = n_embd // n_heads
+    n_layers = spec.get("n_layers", n_layers)
     heads = spec.get("heads", (n_heads,) * n_layers)
     kv_heads = spec.get("kv_heads", (n_kv,) * n_layers)
     ffs = spec.get("ffs", (n_ff,) * n_layers)

@@ -1,7 +1,8 @@
 """The port's decoder against the JAX package's on the LayerNorm arch
 families (parallel blocks, biases, fused qkv, ALiBi, learned positions,
 q/k/v clamping, embedding norm, scaled and biased logits, falcon-40b's
-second attention norm, olmo's norms without weights, jais's biased gate):
+second attention norm, olmo's norms without weights, jais's biased gate,
+starcoder, orion, codeshell):
 the tiny GGUFs and the comparison of test_torch_archs.py."""
 
 import pytest
@@ -10,7 +11,8 @@ from test_torch_archs import F32, Q8_0, TOL, check_logits, run_both, write_model
 
 CASES = [("phi2", F32), ("command-r", F32), ("starcoder2", F32), ("bloom", F32),
          ("mpt", Q8_0), ("gpt2", F32), ("gpt2", Q8_0), ("falcon", F32), ("falcon", Q8_0),
-         ("olmo", F32), ("jais", F32)]
+         ("olmo", F32), ("jais", F32), ("starcoder", F32), ("starcoder", Q8_0), ("orion", F32),
+         ("orion", Q8_0), ("codeshell", F32), ("codeshell", Q8_0)]
 
 
 @pytest.fixture(scope="module", params=CASES, ids=lambda c: f"{c[0]}-{c[1].name}")
@@ -39,4 +41,7 @@ def test_ln_flags_are_set(run):
             "olmo": all(layer.get(k) is None for k in ("attn_norm", "ffn_norm"))
             and run["params"].get("output_norm") is None,
             "jais": cfg.alibi_max_bias == 8.0 and layer.get("b_gate") is not None,
+            "starcoder": cfg.pos_embd and cfg.rope_dim == 0,
+            "orion": layer.get("attn_norm_b") is not None,
+            "codeshell": not cfg.ffn_gated and cfg.act == "gelu",
             }[cfg.arch]

@@ -678,3 +678,77 @@ def test_taps_kernel_route_matches_plain(dev):
     untapped = syncs(lambda: taps("kernel", tapped=False))
     tapped = syncs(lambda: taps("kernel"))
     assert sorted(tapped) == sorted(untapped), (tapped, untapped)
+
+
+def _write_tiny_bert(path: str, rank_head: bool) -> str:
+    """A 2-layer bert GGUF, Q8_0 projections, written by the port's writer."""
+    from prima_tpu_torch.gguf.writer import GGUFWriter
+    from prima_tpu_torch.quant.quantize_np import quantize
+
+    rng = np.random.default_rng(7)
+    e, f, n_vocab, n_pos = 128, 256, 64, 64
+    w = GGUFWriter(path, arch="bert")
+    for key, val in {"block_count": 2, "embedding_length": e, "attention.head_count": 4,
+                     "feed_forward_length": f, "context_length": n_pos,
+                     "attention.layer_norm_epsilon": 1e-12}.items():
+        w.add_kv(f"bert.{key}", val)
+    toks = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + [f"▁w{i}" for i in range(n_vocab - 4)]
+    w.add_kv("tokenizer.ggml.model", "bert")
+    w.add_kv("tokenizer.ggml.tokens", toks)
+    w.add_kv("tokenizer.ggml.cls_token_id", 2)
+    w.add_kv("tokenizer.ggml.seperator_token_id", 3)
+
+    def mat(name, rows, cols):
+        x = (rng.standard_normal((rows, cols)) * 0.05).astype(np.float32)
+        w.add_tensor(name, quantize(x, GGMLType.Q8_0), ne=(cols, rows), ggml_type=GGMLType.Q8_0)
+
+    def vec(name, n, around=0.0):
+        w.add_tensor(name, (around + rng.standard_normal(n) * 0.02).astype(np.float32))
+
+    mat("token_embd.weight", n_vocab, e)
+    w.add_tensor("token_types.weight", (rng.standard_normal((2, e)) * 0.1).astype(np.float32))
+    w.add_tensor("position_embd.weight", (rng.standard_normal((n_pos, e)) * 0.1).astype(np.float32))
+    for name in ["token_embd_norm"] + [f"blk.{i}.{n}" for i in range(2)
+                                       for n in ("attn_output_norm", "layer_output_norm")]:
+        vec(name + ".weight", e, 1.0)
+        vec(name + ".bias", e)
+    for i in range(2):
+        p = f"blk.{i}."
+        for t in ("attn_q", "attn_k", "attn_v", "attn_output"):
+            mat(p + t + ".weight", e, e)
+            vec(p + t + ".bias", e)
+        mat(p + "ffn_up.weight", f, e)
+        vec(p + "ffn_up.bias", f)
+        mat(p + "ffn_down.weight", e, f)
+        vec(p + "ffn_down.bias", e)
+    if rank_head:
+        w.add_tensor("cls.weight", (rng.standard_normal((e, e)) * 0.05).astype(np.float32))
+        vec("cls.bias", e)
+        w.add_tensor("cls.output.weight", (rng.standard_normal((1, e)) * 0.2).astype(np.float32))
+        vec("cls.output.bias", 1)
+    w.write()
+    return path
+
+
+def test_bert_runtime_kernel_route_matches_plain(dev, tmp_path):
+    """BertModelRuntime on the card: a text under 32 tokens streams its 12
+    projections through the GEMV (6 a layer), a longer one takes the dense
+    path; embeddings and rank scores within 1e-4 of max |v| of --matmul
+    plain on the same card, unit norms."""
+    from prima_tpu_torch.models.bert import BertModelRuntime
+
+    rt = BertModelRuntime.load(_write_tiny_bert(str(tmp_path / "b.gguf"), True), device=dev)
+    short = ["w1 w2 w3 w4", "w5 w9 w12 w30 w31 w40"]
+    long = [" ".join(f"w{i % 60}" for i in range(45))]
+    before = qm.launches.count
+    got = rt.embed(short)
+    assert qm.launches.count - before == 12 * len(short)
+    before = qm.launches.count
+    got_long = rt.embed(long)
+    assert qm.launches.count == before
+    for a, b in ((got, rt.embed(short, matmul_impl="plain")),
+                 (got_long, rt.embed(long, matmul_impl="plain"))):
+        assert np.abs(a - b).max() <= GEMV_TOL * np.abs(b).max()
+        assert np.abs(np.linalg.norm(a, axis=1) - 1).max() <= 1e-5
+    s, sp = rt.rerank("w1 w2", short), rt.rerank("w1 w2", short, matmul_impl="plain")
+    assert np.abs(s - sp).max() <= GEMV_TOL * np.abs(sp).max()

@@ -1,7 +1,7 @@
 """Mixture-of-experts in the port against the JAX package: Mixtral (llama
 with experts, normalized top-k weights), qwen2moe (raw top-k weights and a
-shared expert), grok (GELU experts, softcap, post norms) and arctic (a
-dense FFN beside the experts), as tiny GGUFs in f32, Q8_0 and Q4_K through
+shared expert), grok (GELU experts, softcap, post norms), arctic (a
+dense FFN beside the experts) and granitemoe (four scale knobs), as tiny GGUFs in f32, Q8_0 and Q4_K through
 both packages' load_params and forward: logits within 2e-4 * max |logit|,
 16 greedy steps identical. The expert-indexed GEMV and the MoE paths
 around it are in test_torch_moe_paths.py."""
@@ -14,7 +14,8 @@ from prima_tpu_torch.models.config import ModelConfig
 from test_torch_archs import F32, MOE_TOL, Q4_K, Q8_0, check_logits, run_both, write_model
 
 CASES = [("mixtral", F32), ("mixtral", Q8_0), ("mixtral", Q4_K), ("qwen2moe", F32),
-         ("qwen2moe", Q8_0), ("grok", F32), ("arctic", F32)]
+         ("qwen2moe", Q8_0), ("grok", F32), ("arctic", F32), ("granitemoe", F32),
+         ("granitemoe", Q8_0)]
 
 
 def _write(tmp_path_factory, name, ftype):
