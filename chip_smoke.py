@@ -172,6 +172,19 @@ Phases, each of which fails the run on any error or mismatch:
                max |logit|, equal argmax and streams), then in bf16: CLIP
                ms, the splice's prefill ms, decode tok/s, idle share, peak
                memory, and 225 qgemv and 32 kv_store launches a decode step.
+ 13. families — the dense family runtimes at full width, weights from seeds
+               at the scale of HF's initializers: DeepSeek-V2-Lite (27
+               layers, 64 routed experts of 1408, top-6, two shared, YaRN
+               factor 40) in bf16, Mamba-2.8B, RWKV-6 Finch 1.6B and
+               Flan-T5-Large in f32; each first at full width and 2 or 4
+               layers in f32, the card's generate against one teacher-forced
+               CPU forward (logits within 1e-3 of max |logit|, argmax and top
+               5 ids equal at every step), then at full depth: prefill ms,
+               per-token wall and device ms, idle share, peak memory, and for
+               Mamba and RWKV-6 the decode's logits against one full-sequence
+               forward; then tiny deepseek2, minicpm3, mamba, rwkv6 and t5
+               GGUFs through the CLI, card against --device cpu. None of
+               these runs may launch a hand kernel.
 The decoder writes K and V through the fused KV store; the byte-generic KV
 write runs where a saved slot is restored, so its launches are the server's
 (phase 3). The device-memory probe is on no serving path: its launches are
@@ -4441,22 +4454,10 @@ def phase_vision(dev, report: dict) -> dict:
         del rt
         gc.collect()
     (kt, kl), (pt, pl) = runs["kernel"], runs["plain"]
-    errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(kl, pl)]
-    argmax_equal = all(int(np.argmax(a)) == int(np.argmax(b)) for a, b in zip(kl, pl))
     # the random model repeats one token, so the stream alone shows little:
-    # each step's top 5 ids must match too, unless plain's 5th and 6th
-    # logits lie closer than the two runs' difference
-    top5_tied = top5_differ = 0
-    for a, b in zip(kl, pl):
-        ib = np.argsort(-b)[:6]
-        if b[ib[4]] - b[ib[5]] <= 2 * np.abs(a - b).max():
-            top5_tied += 1
-        elif set(np.argsort(-a)[:5]) != set(ib[:5]):
-            top5_differ += 1
-    r["f32"] = {"tokens_equal": kt == pt, "argmax_equal": argmax_equal,
-                "top5_steps_differ": top5_differ, "top5_steps_tied": top5_tied,
-                "max_rel_logit_err": max(errs), "steps": len(errs), "tokens": kt}
-    if not (kt == pt and argmax_equal) or top5_differ or max(errs) > LOGITS_TOL:
+    # each step's top 5 ids must match too (step_rule)
+    r["f32"] = dict(step_rule(kl, pl), tokens_equal=kt == pt, tokens=kt)
+    if not (kt == pt and rule_holds(r["f32"])):
         raise AssertionError(f"llava kernels against plain (f32): {r['f32']}, plain {pt}")
     # bf16, as LlavaRuntime runs by default
     rt = LlavaRuntime(model, max_seq=VISION_CTX, device=dev)
@@ -4516,12 +4517,627 @@ def phase_vision(dev, report: dict) -> dict:
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dense family runtimes (deepseek2 / minicpm3, mamba, rwkv6, t5)
+
+# The published config.json numbers of each model (nothing is downloaded).
+# deepseek-ai/DeepSeek-V2-Lite: YaRN factor 40 over 4096, beta 32 / 1,
+# mscale_all_dim 0.707 (yarn_log_multiplier 0.1 * 0.707); its routed
+# experts are 1408 wide, the two shared ones one expert of 2816
+DSV2_LITE = dict(arch="deepseek2", n_layers=27, n_embd=2048, n_heads=16, qk_rope=64, qk_nope=128,
+                 v_head_dim=128, q_lora_rank=0, kv_lora_rank=512, n_ff=10944, n_dense_lead=1,
+                 n_expert=64, n_expert_used=6, n_expert_shared=2, expert_weights_scale=1.0,
+                 n_vocab=102400, rms_eps=1e-6, rope_base=10000.0, rope_scaling="yarn",
+                 rope_factor=40.0, rope_orig_ctx=4096, yarn_log_mul=0.0707, beta_fast=32.0,
+                 beta_slow=1.0)
+DSV2_LITE_FF_EXP = 1408
+# state-spaces/mamba-2.8b-hf: tied embeddings
+MAMBA_2_8B = dict(arch="mamba", n_layers=64, n_embd=2560, d_inner=5120, d_conv=4, d_state=16,
+                  dt_rank=160, n_vocab=50280, n_ctx_train=2048, rms_eps=1e-5)
+# RWKV/v6-Finch-1B6-HF
+RWKV6_1B6 = dict(arch="rwkv6", n_layers=24, n_embd=2048, head_size=64, n_ff=7168, n_vocab=65536,
+                 ln_eps=1e-5, rescale_every=6, time_mix_extra_dim=32, time_decay_extra_dim=64)
+# google/flan-t5-large: gated-GELU, untied head
+FLAN_T5_LARGE = dict(arch="t5", n_layers=24, n_enc_layers=24, n_embd=1024, n_heads=16,
+                     head_dim=64, n_ff=2816, n_vocab=32128, rms_eps=1e-6, rel_buckets=32,
+                     rel_max_dist=128, dec_start_token=0, tie_embeddings=False, ffn_gated=True)
+FAMILY_PROMPT = 32  # prompt tokens (the encoder's input for T5)
+FAMILY_TOKENS = {"deepseek2": 16, "mamba": 32, "rwkv6": 32, "t5": 16}
+FAMILY_CHECK_LAYERS = {"deepseek2": 2, "mamba": 4, "rwkv6": 4, "t5": 2}  # card vs CPU
+
+
+class HostDraw:
+    """Seeded weights in f32 numpy (params_from_numpy carries them to any
+    device)."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed)
+
+    def normal(self, *shape, std=0.02, mean=0.0):
+        import numpy as np
+
+        x = self.rng.standard_normal(shape, dtype=np.float32)
+        x *= np.float32(std)
+        if mean:
+            x += np.float32(mean)
+        return x
+
+    def uniform(self, *shape, lo, hi):
+        import numpy as np
+
+        return self.rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def const(self, a):
+        import numpy as np
+
+        return np.asarray(a, np.float32)
+
+
+class CardDraw:
+    """Seeded weights drawn on the card in `dtype`."""
+
+    def __init__(self, seed: int, dev, dtype):
+        import torch
+
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(seed)
+        self.dev, self.dtype = dev, dtype
+
+    def normal(self, *shape, std=0.02, mean=0.0):
+        import torch
+
+        x = torch.randn(shape, generator=self.gen, device=self.dev, dtype=self.dtype)
+        x.mul_(std)
+        if mean:
+            x.add_(mean)
+        return x
+
+    def uniform(self, *shape, lo, hi):
+        import torch
+
+        x = torch.rand(shape, generator=self.gen, device=self.dev, dtype=torch.float32)
+        return (x * (hi - lo) + lo).to(self.dtype)
+
+    def const(self, a):
+        import numpy as np
+        import torch
+
+        return torch.from_numpy(np.asarray(a, np.float32)).to(self.dev, self.dtype)
+
+
+def ds2_tree(c: dict, n_layers: int, d) -> dict:
+    """DeepSeek-V2 params (load_deepseek2_params' tree): projections at std
+    0.02, unit norms; q_lora_rank 0 (a direct wq), stacked experts."""
+    e, h = c["n_embd"], c["n_heads"]
+    qk = c["qk_nope"] + c["qk_rope"]
+    fe, ne = DSV2_LITE_FF_EXP, c["n_expert"]
+    ones = lambda n: d.normal(n, std=0.0, mean=1.0)
+    p = {"tok_embd": d.normal(c["n_vocab"], e), "layers": [], "output_norm": ones(e),
+         "output": d.normal(c["n_vocab"], e), "rope_long": None, "rope_short": None}
+    for i in range(n_layers):
+        layer = {"attn_norm": ones(e), "wq": d.normal(h * qk, e),
+                 "kv_a_mqa": d.normal(c["kv_lora_rank"] + c["qk_rope"], e),
+                 "kv_a_norm": ones(c["kv_lora_rank"]),
+                 "kv_b": d.normal(h * (c["qk_nope"] + c["v_head_dim"]), c["kv_lora_rank"]),
+                 "wo": d.normal(e, h * c["v_head_dim"]), "ffn_norm": ones(e)}
+        if i < c["n_dense_lead"]:
+            layer.update(w_gate=d.normal(c["n_ff"], e), w_up=d.normal(c["n_ff"], e),
+                         w_down=d.normal(e, c["n_ff"]))
+        else:
+            fs = fe * c["n_expert_shared"]
+            layer.update(gate_inp=d.normal(ne, e), ffn_gate_exps=d.normal(ne, fe, e),
+                         ffn_up_exps=d.normal(ne, fe, e), ffn_down_exps=d.normal(ne, e, fe),
+                         gate_shexp=d.normal(fs, e), up_shexp=d.normal(fs, e),
+                         down_shexp=d.normal(e, fs))
+        p["layers"].append(layer)
+    return p
+
+
+def mamba_tree(c: dict, n_layers: int, d) -> dict:
+    """Mamba params at the scale of HF's initializers: A_log = log(1..d_state)
+    (so A = -(1..d_state)), D = 1, the dt bias the inverse softplus of a dt
+    drawn log-uniform in [1e-3, 0.1], the conv uniform in +-1/sqrt(d_conv);
+    projections at std 0.02, unit norms; tied embeddings."""
+    import numpy as np
+
+    e, di, ds, dtr = c["n_embd"], c["d_inner"], c["d_state"], c["dt_rank"]
+    a = -np.tile(np.arange(1, ds + 1, dtype=np.float32), (di, 1))
+    ones = lambda n: d.normal(n, std=0.0, mean=1.0)
+    p = {"tok_embd": d.normal(c["n_vocab"], e), "layers": [], "output_norm": ones(e),
+         "output": None}
+    for i in range(n_layers):
+        # dt from a host generator seeded by the layer, on either device
+        dt = np.exp(HostDraw(1000 + i).uniform(di, lo=np.log(1e-3), hi=np.log(0.1)))
+        dt_b = dt + np.log(-np.expm1(-dt))  # the inverse softplus
+        bound = 1.0 / np.sqrt(c["d_conv"])
+        p["layers"].append({"norm": ones(e), "ssm_in": d.normal(2 * di, e),
+                            "conv_w": d.uniform(di, c["d_conv"], lo=-bound, hi=bound),
+                            "conv_b": d.uniform(di, lo=-bound, hi=bound),
+                            "ssm_x": d.normal(dtr + 2 * ds, di), "dt_w": d.normal(di, dtr),
+                            "dt_b": d.const(dt_b), "A": d.const(a), "D": d.const(np.ones(di)),
+                            "out": d.normal(e, di)})
+    return p
+
+
+def rwkv6_tree(c: dict, n_layers: int, d) -> dict:
+    """RWKV-6 params: the lerps and the decay around 0.5 (std 0.05) and
+    time_mix_first at std 0.2, as tests/test_rwkv6.py's fixture; other
+    projections at std 0.02, unit LayerNorms with zero biases; layer i's
+    time_mix_output and channel_mix_value divided by 2^(i // rescale_every),
+    as the converter bakes the rescale into a GGUF."""
+    e, f = c["n_embd"], c["n_ff"]
+    H, N = e // c["head_size"], c["head_size"]
+    tmx, tdx = c["time_mix_extra_dim"], c["time_decay_extra_dim"]
+    ones = lambda n: d.normal(n, std=0.0, mean=1.0)
+    zeros = lambda n: d.normal(n, std=0.0)
+    half = lambda n: d.normal(n, std=0.05, mean=0.5)
+    p = {"tok_embd": d.normal(c["n_vocab"], e), "tok_norm": ones(e), "tok_norm_b": zeros(e),
+         "output_norm": ones(e), "output_norm_b": zeros(e), "output": d.normal(c["n_vocab"], e),
+         "layers": []}
+    for i in range(n_layers):
+        scale = 0.5 ** (i // c["rescale_every"]) if c["rescale_every"] else 1.0
+        layer = {"attn_norm": ones(e), "attn_norm_b": zeros(e), "attn_norm_2": ones(e),
+                 "attn_norm_2_b": zeros(e), "w1": d.normal(5 * tmx, e), "w2": d.normal(5, e, tmx),
+                 "first": d.normal(H, N, std=0.2), "decay": half(e),
+                 "decay_w1": d.normal(tdx, e), "decay_w2": d.normal(e, tdx),
+                 "key": d.normal(e, e), "value": d.normal(e, e), "receptance": d.normal(e, e),
+                 "gate": d.normal(e, e), "ln": ones(e), "ln_b": zeros(e),
+                 "out": d.normal(e, e, std=0.02 * scale), "cm_key": d.normal(f, e),
+                 "cm_value": d.normal(e, f, std=0.02 * scale),
+                 "cm_receptance": d.normal(e, e)}
+        for k in ("lerp_x", "lerp_w", "lerp_k", "lerp_v", "lerp_r", "lerp_g", "cm_lerp_k",
+                  "cm_lerp_r"):
+            layer[k] = half(e)
+        p["layers"].append(layer)
+    return p
+
+
+def t5_tree(c: dict, n_layers: int, d) -> dict:
+    """T5 params (gated-GELU, untied head): std 0.02, unit norms, relative
+    attention biases on block 0 of each stack only."""
+    e, f, hd = c["n_embd"], c["n_ff"], c["n_heads"] * c["head_dim"]
+    ones = lambda n: d.normal(n, std=0.0, mean=1.0)
+
+    def block(i, cross):
+        b = {"attn_norm": ones(e), "wq": d.normal(hd, e), "wk": d.normal(hd, e),
+             "wv": d.normal(hd, e), "wo": d.normal(e, hd),
+             "rel_b": d.normal(c["rel_buckets"], c["n_heads"]) if i == 0 else None,
+             "ffn_norm": ones(e), "w_up": d.normal(f, e), "w_gate": d.normal(f, e),
+             "w_down": d.normal(e, f)}
+        if cross:
+            b.update(cross_norm=ones(e), cq=d.normal(hd, e), ck=d.normal(hd, e),
+                     cv=d.normal(hd, e), co=d.normal(e, hd))
+        return b
+
+    return {"tok_embd": d.normal(c["n_vocab"], e),
+            "enc": [block(i, False) for i in range(n_layers)],
+            "dec": [block(i, True) for i in range(n_layers)], "enc_norm": ones(e),
+            "dec_norm": ones(e), "output": d.normal(c["n_vocab"], e)}
+
+
+def family_cfg(name: str, n_layers: int | None = None):
+    from prima_tpu_torch.models import deepseek2, mamba, rwkv6, t5
+
+    c = {"deepseek2": (deepseek2.DeepseekV2Config, DSV2_LITE),
+         "mamba": (mamba.MambaConfig, MAMBA_2_8B), "rwkv6": (rwkv6.Rwkv6Config, RWKV6_1B6),
+         "t5": (t5.T5Config, FLAN_T5_LARGE)}[name]
+    cfg = c[0](**c[1])
+    if n_layers is not None:
+        cfg.n_layers = n_layers
+        if name == "t5":
+            cfg.n_enc_layers = n_layers
+    return cfg
+
+
+FAMILY_TREES = {"deepseek2": (DSV2_LITE, ds2_tree), "mamba": (MAMBA_2_8B, mamba_tree),
+                "rwkv6": (RWKV6_1B6, rwkv6_tree), "t5": (FLAN_T5_LARGE, t5_tree)}
+FAMILY_RUNTIMES = {"deepseek2": ("deepseek2", "DeepseekV2Runtime", "deepseek2_forward"),
+                   "mamba": ("mamba", "MambaRuntime", "mamba_forward"),
+                   "rwkv6": ("rwkv6", "Rwkv6Runtime", "rwkv6_forward"),
+                   "t5": ("t5", "T5Runtime", "t5_decode")}
+
+
+def family_run(name: str, rt, prompt: list, n: int) -> tuple[list, list]:
+    """rt.generate(prompt, n) (the entry point the CLI calls), recording the
+    last row of the logits of each forward it makes: (tokens, rows)."""
+    import importlib
+
+    mod = importlib.import_module("prima_tpu_torch.models." + FAMILY_RUNTIMES[name][0])
+    fname = FAMILY_RUNTIMES[name][2]
+    real, rows = getattr(mod, fname), []
+
+    def record(*a, **kw):
+        out = real(*a, **kw)
+        logits = out[0] if isinstance(out, tuple) else out
+        rows.append(logits[0, -1].float().cpu().numpy())
+        return out
+
+    setattr(mod, fname, record)
+    try:
+        toks = rt.generate(prompt, n_predict=n)
+    finally:
+        setattr(mod, fname, real)
+    return toks, rows
+
+
+def family_teacher_forced(name: str, params, cfg, prompt: list, toks: list) -> list:
+    """The rows a run that produced `toks` from `prompt` saw, from one
+    teacher-forced forward of the whole sequence: for the recurrent
+    families the prompt's last row and one row a generated token (their
+    runs make one more forward than tokens), else one row a token."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module("prima_tpu_torch.models." + FAMILY_RUNTIMES[name][0])
+    with torch.no_grad():
+        if name == "t5":
+            enc = mod.t5_encode(params, cfg, [prompt])
+            lg = mod.t5_decode(params, cfg, [[cfg.dec_start_token] + toks[:-1]], enc)[0]
+            return list(lg.float().cpu().numpy())
+        if name == "deepseek2":
+            lg = mod.deepseek2_forward(params, cfg, [prompt + toks[:-1]])[0]
+        else:
+            lg = getattr(mod, FAMILY_RUNTIMES[name][2])(params, cfg, [prompt + toks])[0][0]
+    return list(lg[len(prompt) - 1:].float().cpu().numpy())
+
+
+def step_rule(got: list, want: list) -> dict:
+    """Rows against reference rows: the largest max |err| / max |want|,
+    argmax equal at every step, and the top 5 ids equal at every step
+    unless the reference's 5th and 6th logits lie within twice the rows'
+    difference (a tie, counted apart)."""
+    import numpy as np
+
+    errs, tied, differ, argmax_equal = [], 0, 0, len(got) == len(want)
+    for a, b in zip(got, want):
+        diff = float(np.abs(a - b).max())
+        errs.append(diff / float(np.abs(b).max()))
+        argmax_equal &= int(np.argmax(a)) == int(np.argmax(b))
+        ib = np.argsort(-b)[:6]
+        if b[ib[4]] - b[ib[5]] <= 2 * diff:
+            tied += 1
+        elif set(np.argsort(-a)[:5]) != set(ib[:5]):
+            differ += 1
+    return {"max_rel_logit_err": max(errs), "argmax_equal": argmax_equal,
+            "top5_steps_differ": differ, "top5_steps_tied": tied, "steps": len(errs)}
+
+
+def rule_holds(r: dict) -> bool:
+    return r["argmax_equal"] and not r["top5_steps_differ"] and r["max_rel_logit_err"] <= LOGITS_TOL
+
+
+def family_card_vs_cpu(name: str, dev, seed: int) -> dict:
+    """Full width at FAMILY_CHECK_LAYERS of depth in f32: seeded numpy weights
+    carried by params_from_numpy to the card and to the CPU; the card's
+    generate (every forward's last row recorded) against one teacher-forced
+    CPU forward over the stream, by step_rule."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.llama import params_from_numpy
+
+    shape, tree = FAMILY_TREES[name]
+    n_layers = FAMILY_CHECK_LAYERS[name]
+    t0 = time.time()
+    host = tree(shape, n_layers, HostDraw(seed))
+    host_s = time.time() - t0
+    cfg = family_cfg(name, n_layers)
+    mod = importlib.import_module("prima_tpu_torch.models." + FAMILY_RUNTIMES[name][0])
+    runtime = getattr(mod, FAMILY_RUNTIMES[name][1])
+    prompt = np.random.default_rng(seed + 1).integers(0, cfg.n_vocab, FAMILY_PROMPT).tolist()
+    t0 = time.time()
+    card = runtime(cfg, params_from_numpy(host, dev))
+    counters = zero_counts()
+    toks, rows = family_run(name, card, prompt, FAMILY_TOKENS[name])
+    launches = read_counts(counters)
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_s = time.time() - t0
+    t0 = time.time()
+    want = family_teacher_forced(name, params_from_numpy(host, "cpu"), cfg, prompt, toks)
+    r = dict(step_rule(rows, want), layers=n_layers, tokens=toks, host_weights_s=host_s,
+             card_s=card_s, cpu_s=time.time() - t0, launches=launches)
+    if not rule_holds(r) or launches:
+        raise AssertionError(f"{name} card against CPU ({n_layers} layers, f32): {r}")
+    return r
+
+
+def family_full(name: str, dev, dtype, seed: int) -> dict:
+    """Full width and depth on the card, weights drawn there in `dtype`:
+    the prompt's forward (prefill ms), then generate timed and profiled
+    (profiled_wall: per-token wall and device ms, idle share), its launch
+    counts (none of the hand kernels) and peak memory; for the recurrent
+    families the decode's rows against one full-sequence forward on the card
+    by step_rule."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    shape, tree = FAMILY_TREES[name]
+    cfg = family_cfg(name)
+    mod = importlib.import_module("prima_tpu_torch.models." + FAMILY_RUNTIMES[name][0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    params = tree(shape, cfg.n_layers, CardDraw(seed, dev, dtype))
+    torch.cuda.synchronize()
+    r: dict = {"dtype": str(dtype).removeprefix("torch."), "layers": cfg.n_layers,
+               "weights_s": time.time() - t0}
+    r["weight_gib"] = sum(t.numel() * t.element_size() for t in _tensors(params)) / 2 ** 30
+    rt = getattr(mod, FAMILY_RUNTIMES[name][1])(cfg, params)
+    prompt = np.random.default_rng(seed + 1).integers(0, cfg.n_vocab, FAMILY_PROMPT).tolist()
+    n = FAMILY_TOKENS[name]
+    with torch.no_grad():
+        for _ in range(2):  # the second forward is timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "t5":
+                mod.t5_decode(params, cfg, [[cfg.dec_start_token]],
+                              mod.t5_encode(params, cfg, [prompt]))
+            else:
+                getattr(mod, FAMILY_RUNTIMES[name][2])(params, cfg, [prompt])
+            torch.cuda.synchronize()
+            r["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    toks, rows = family_run(name, rt, prompt, n)
+    torch.cuda.synchronize()
+    r["generate_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    r["launches"] = read_counts(counters)
+    r["tokens"] = toks
+    # the profiled window: a recompute runtime's later forwards repeat the
+    # first ones' ops over a longer prefix, so deepseek2 profiles 4 tokens
+    n_prof = 4 if name == "deepseek2" else n
+    pw = profiled_wall(lambda: (rt.generate(prompt, n_predict=n_prof),))
+    r.update({"profiled_tokens": n_prof, "wall_ms_a_token": pw["wall_ms"] / n_prof,
+              "device_ms_a_token": pw["device_busy_ms"] / n_prof,
+              "device_idle_share": pw["device_idle_share"],
+              "top_kernels_ms": pw["top_kernels_ms"],
+              "same_tokens_profiled": pw["same_tokens_profiled"]
+              and pw["result"][0] == toks[:n_prof]})
+    r["launches_profiled_run"] = pw["launches"]
+    if name in ("mamba", "rwkv6"):
+        r["decode_vs_full"] = step_rule(rows, family_teacher_forced(name, params, cfg, prompt,
+                                                                   toks))
+        if not rule_holds(r["decode_vs_full"]):
+            raise AssertionError(f"{name}: decode against the full forward: {r}")
+    r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if r["launches"] or r["launches_profiled_run"] or len(toks) != n \
+            or not r["same_tokens_profiled"]:
+        raise AssertionError(f"{name} at full depth: {r}")
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def tiny_family_ggufs(work: str) -> dict:
+    """Tiny GGUFs of the five archs the CLI sends to the family runtimes,
+    written from seeds by the port's GGUFWriter with the trained tiny
+    pair's tokenizer: deepseek2 (Lite layout, YaRN keys, 4 experts),
+    minicpm3 (a q LoRA, LongRoPE factors, rope_orig_ctx 8), mamba, rwkv6
+    (rescale_every 1) and t5 (gated, untied)."""
+    import numpy as np
+
+    from prima_tpu_torch.gguf.reader import GGUFModel
+    from prima_tpu_torch.gguf.writer import GGUFWriter
+
+    tm = GGUFModel.open(os.path.join(ROOT, TINY))
+    tok_kv = {k: v for k, v in tm.metadata.items() if k.startswith("tokenizer.")}
+    tm.close()
+    nv = len(tok_kv["tokenizer.ggml.tokens"])
+    os.makedirs(work, exist_ok=True)
+    out = {}
+
+    def write(arch: str, kv: dict, tensors: dict) -> None:
+        path = os.path.join(work, f"{arch}.gguf")
+        w = GGUFWriter(path, arch=arch)
+        for k, v in kv.items():
+            w.add_kv(f"{arch}.{k}", v)
+        for k, v in tok_kv.items():
+            w.add_kv(k, v)
+        for k, v in tensors.items():
+            w.add_tensor(k, np.ascontiguousarray(v, np.float32))
+        w.write()
+        out[arch] = path
+
+    d = HostDraw(71)
+    nrm = lambda *s: d.normal(*s, std=0.3)
+    ones = lambda n: d.normal(n, std=0.05, mean=1.0)
+    e = 32
+    # deepseek2 and minicpm3: MLA with 4 heads, qk 8 + 8, v 8, kv rank 16
+    for arch in ("deepseek2", "minicpm3"):
+        kv = {"block_count": 2, "embedding_length": e, "attention.head_count": 4,
+              "attention.head_count_kv": 4, "attention.key_length": 16,
+              "attention.value_length": 8, "attention.kv_lora_rank": 16,
+              "feed_forward_length": 48, "context_length": 64, "vocab_size": nv,
+              "attention.layer_norm_rms_epsilon": 1e-6, "rope.dimension_count": 8,
+              "rope.freq_base": 10000.0}
+        t = {"token_embd.weight": nrm(nv, e), "output_norm.weight": ones(e),
+             "output.weight": nrm(nv, e)}
+        if arch == "deepseek2":
+            kv.update({"leading_dense_block_count": 1, "expert_count": 4, "expert_used_count": 2,
+                       "expert_shared_count": 1, "expert_weights_scale": 1.0,
+                       "rope.scaling.type": "yarn", "rope.scaling.factor": 4.0,
+                       "rope.scaling.original_context_length": 16,
+                       "rope.scaling.yarn_log_multiplier": 0.0707})
+        else:
+            kv.update({"attention.q_lora_rank": 16,
+                       "rope.scaling.original_context_length": 8})
+            t.update({"rope_factors_long.weight": d.uniform(4, lo=1.0, hi=4.0),
+                      "rope_factors_short.weight": d.uniform(4, lo=0.8, hi=1.2)})
+        for i in range(2):
+            p = f"blk.{i}."
+            t.update({p + "attn_norm.weight": ones(e), p + "attn_kv_a_mqa.weight": nrm(24, e),
+                      p + "attn_kv_a_norm.weight": ones(16), p + "attn_kv_b.weight": nrm(64, 16),
+                      p + "attn_output.weight": nrm(e, 32), p + "ffn_norm.weight": ones(e)})
+            if arch == "minicpm3":
+                t.update({p + "attn_q_a.weight": nrm(16, e), p + "attn_q_a_norm.weight": ones(16),
+                          p + "attn_q_b.weight": nrm(64, 16)})
+            else:
+                t[p + "attn_q.weight"] = nrm(64, e)
+            if arch == "minicpm3" or i == 0:
+                t.update({p + "ffn_gate.weight": nrm(48, e), p + "ffn_up.weight": nrm(48, e),
+                          p + "ffn_down.weight": nrm(e, 48)})
+            else:
+                t.update({p + "ffn_gate_inp.weight": nrm(4, e),
+                          p + "ffn_gate_exps.weight": nrm(4, 16, e),
+                          p + "ffn_up_exps.weight": nrm(4, 16, e),
+                          p + "ffn_down_exps.weight": nrm(4, e, 16),
+                          p + "ffn_gate_shexp.weight": nrm(16, e),
+                          p + "ffn_up_shexp.weight": nrm(16, e),
+                          p + "ffn_down_shexp.weight": nrm(e, 16)})
+        write(arch, kv, t)
+    # mamba: d_inner 64, d_state 8, dt_rank 4; tied
+    t = {"token_embd.weight": nrm(nv, e), "output_norm.weight": ones(e)}
+    for i in range(2):
+        p = f"blk.{i}."
+        t.update({p + "attn_norm.weight": ones(e), p + "ssm_in.weight": nrm(128, e),
+                  p + "ssm_conv1d.weight": nrm(64, 4), p + "ssm_conv1d.bias": nrm(64),
+                  p + "ssm_x.weight": nrm(20, 64), p + "ssm_dt.weight": nrm(64, 4),
+                  p + "ssm_dt.bias": d.uniform(64, lo=-4.0, hi=-2.0),
+                  p + "ssm_a": -np.tile(np.arange(1, 9, dtype=np.float32), (64, 1)),
+                  p + "ssm_d": np.ones(64, np.float32), p + "ssm_out.weight": nrm(e, 64)})
+    write("mamba", {"block_count": 2, "embedding_length": e, "ssm.inner_size": 64,
+                    "ssm.conv_kernel": 4, "ssm.state_size": 8, "ssm.time_step_rank": 4,
+                    "context_length": 64, "vocab_size": nv,
+                    "attention.layer_norm_rms_epsilon": 1e-5}, t)
+    # rwkv6: 4 heads of 8
+    t = {"token_embd.weight": nrm(nv, e), "output.weight": nrm(nv, e)}
+    for nm in ("token_embd_norm", "output_norm"):
+        t.update({nm + ".weight": ones(e), nm + ".bias": d.normal(e, std=0.05)})
+    for i in range(2):
+        p = f"blk.{i}."
+        for nm in ("attn_norm", "attn_norm_2", "time_mix_ln"):
+            t.update({p + nm + ".weight": ones(e), p + nm + ".bias": d.normal(e, std=0.05)})
+        for nm in ("time_mix_lerp_x", "time_mix_lerp_w", "time_mix_lerp_k", "time_mix_lerp_v",
+                   "time_mix_lerp_r", "time_mix_lerp_g", "channel_mix_lerp_k",
+                   "channel_mix_lerp_r"):
+            t[p + nm + ".weight"] = d.normal(1, 1, e, std=0.05, mean=0.5)
+        t.update({p + "time_mix_w1.weight": nrm(5 * 8, e), p + "time_mix_w2.weight": nrm(5, e, 8),
+                  p + "time_mix_first.weight": nrm(4, 8),
+                  p + "time_mix_decay.weight": d.normal(e, std=0.05, mean=0.5),
+                  p + "time_mix_decay_w1.weight": nrm(12, e),
+                  p + "time_mix_decay_w2.weight": nrm(e, 12),
+                  p + "channel_mix_key.weight": nrm(48, e),
+                  p + "channel_mix_value.weight": nrm(e, 48),
+                  p + "channel_mix_receptance.weight": nrm(e, e)})
+        for nm in ("key", "value", "receptance", "gate", "output"):
+            t[p + f"time_mix_{nm}.weight"] = nrm(e, e)
+    write("rwkv6", {"block_count": 2, "embedding_length": e, "wkv.head_size": 8,
+                    "feed_forward_length": 48, "context_length": 1024, "vocab_size": nv,
+                    "attention.layer_norm_epsilon": 1e-5, "rescale_every_n_layers": 1,
+                    "time_mix_extra_dim": 8, "time_decay_extra_dim": 12}, t)
+    # t5: 4 heads of 8, gated-GELU, untied, 8 buckets
+    t = {"token_embd.weight": nrm(nv, e), "output.weight": nrm(nv, e),
+         "enc.output_norm.weight": ones(e), "dec.output_norm.weight": ones(e)}
+    for stack in ("enc", "dec"):
+        for i in range(2):
+            p = f"{stack}.blk.{i}."
+            t.update({p + "attn_norm.weight": ones(e), p + "ffn_norm.weight": ones(e),
+                      p + "ffn_up.weight": nrm(48, e), p + "ffn_gate.weight": nrm(48, e),
+                      p + "ffn_down.weight": nrm(e, 48)})
+            for nm in ("q", "k", "v", "o"):
+                t[p + f"attn_{nm}.weight"] = nrm(e, e)
+            if i == 0:
+                t[p + "attn_rel_b.weight"] = nrm(8, 4)
+            if stack == "dec":
+                t[p + "cross_attn_norm.weight"] = ones(e)
+                for nm in ("q", "k", "v", "o"):
+                    t[p + f"cross_attn_{nm}.weight"] = nrm(e, e)
+    write("t5", {"block_count": 2, "encoder_block_count": 2, "embedding_length": e,
+                 "attention.head_count": 4, "attention.key_length": 8, "feed_forward_length": 48,
+                 "vocab_size": nv, "attention.layer_norm_rms_epsilon": 1e-6,
+                 "attention.relative_buckets_count": 8, "decoder_start_token_id": 0}, t)
+    return out
+
+
+def family_cli(work: str) -> dict:
+    """python -m prima_tpu_torch.tools.cli on each tiny family GGUF: on the
+    card, then --device cpu, equal exit codes and stdout, no hand kernel
+    launched; mamba greedy and sampled (--temp 0.8 -s 42)."""
+    from prima_tpu_torch.tools import cli
+
+    res = {}
+    runs = [(arch, ["--temp", "0"]) for arch in ("deepseek2", "minicpm3", "mamba", "rwkv6", "t5")]
+    runs.append(("mamba", ["--temp", "0.8", "-s", "42"]))
+    files = tiny_family_ggufs(work)
+    for arch, extra in runs:
+        args = ["-m", files[arch], "-p", "Once upon a time", "-n", "12"] + extra
+        counters = zero_counts()
+        card = tool_call(cli.main, args)
+        launches = read_counts(counters)
+        cpu = tool_call(cli.main, args + ["--device", "cpu"])
+        key = arch + ("_sampled" if "-s" in extra else "")
+        res[key] = {"rc": card[0], "text": card[1], "equal": card[:2] == cpu[:2],
+                    "launches": launches}
+        if card[:2] != cpu[:2] or card[0] != 0 or launches \
+                or not card[1].startswith("Once upon a time"):
+            raise AssertionError(f"CLI on {key}: card {card[:2]} against CPU {cpu[:2]}, "
+                                 f"launches {launches}, stderr {card[2][-1000:]}")
+    return res
+
+
+def phase_families(dev, report: dict) -> None:
+    """The four dense family runtimes at full width, then the five archs'
+    tiny GGUFs through the CLI, card against CPU. No hand kernel may launch
+    (the reference's runtimes reach no Pallas kernel)."""
+    import torch
+
+    r: dict = {}
+    for i, (name, dtype) in enumerate((("deepseek2", torch.bfloat16), ("mamba", torch.float32),
+                                       ("rwkv6", torch.float32), ("t5", torch.float32))):
+        t0 = time.time()
+        check = family_card_vs_cpu(name, dev, seed=80 + 10 * i)
+        full = family_full(name, dev, dtype, seed=85 + 10 * i)
+        r[name] = {"card_vs_cpu": check, "full": full, "seconds": time.time() - t0}
+        log(f"families {name}: card vs CPU at {check['layers']} layers "
+            f"{check['max_rel_logit_err']:.2e} over {check['steps']} steps "
+            f"({check['top5_steps_tied']} tied); full depth {full['dtype']} "
+            f"{full['weight_gib']:.2f} GiB: prefill {full['prefill_ms']:.1f} ms, "
+            f"{full['wall_ms_a_token']:.1f} ms wall / {full['device_ms_a_token']:.2f} ms device a "
+            f"token, idle {full['device_idle_share']:.3f}, peak {full['peak_gib']:.2f} GiB"
+            + (f", decode vs full {full['decode_vs_full']['max_rel_logit_err']:.2e}"
+               if "decode_vs_full" in full else "")
+            + f"; check: host weights {check['host_weights_s']:.1f} s, card "
+            f"{check['card_s']:.1f} s, CPU {check['cpu_s']:.1f} s; weights "
+            f"{full['weights_s']:.1f} s; {r[name]['seconds']:.1f} s")
+    t0 = time.time()
+    r["cli"] = family_cli(os.path.join(ROOT, "build", "chip_smoke", "families"))
+    log(f"families cli: {sorted(r['cli'])} card = CPU, no launches; {time.time() - t0:.1f} s")
+    report["families"] = r
+    for name in ("qgemv", "qgemv_indexed", "kv_write", "kv_store", "flash_decode",
+                 "flash_prefill", "hbm_probe"):
+        report[name]["families_launches"] = 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,server,full,long,spec,ring,moe,tools,quant,embed,vision",
+                    default="build,kernels,server,full,long,spec,ring,moe,tools,quant,embed,vision,"
+                            "families",
                     help="comma-separated subset of build,kernels,server,full,long,spec,ring,"
-                         "moe,tools,quant,embed,vision")
+                         "moe,tools,quant,embed,vision,families")
     # rank 1 of phase ring's full-width ring runs this script with these
     ap.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
@@ -4648,6 +5264,10 @@ def main() -> int:
             for name, n in fn(dev, report).items():
                 launches[name] = (launches.get(name) or 0) + n
             log(f"{phase}: {time.time() - t0:.1f} s")
+    if "families" in phases:
+        t0 = time.time()
+        phase_families(dev, report)
+        log(f"families: {time.time() - t0:.1f} s")
     launches["kv_write"] = report.get("server_long_context", {}).get(
         "launches", {}).get("kv_write")
     launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")

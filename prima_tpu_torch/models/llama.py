@@ -285,10 +285,16 @@ def _load_layer(m: GGUFModel, cfg: ModelConfig, i: int, device, dtype, fuse: boo
     return layer
 
 
-def params_from_numpy(tree, device):
+def params_from_numpy(tree, device, dtype=None):
     """The JAX package's params after jax.device_get -> the port's params:
 a decoder's, an encoder's (models/bert.py, QTensor leaves where
-quantized) or an mmproj's (models/clip.py, all dense).
+quantized), an mmproj's (models/clip.py, all dense) or a dense family
+runtime's (models/{deepseek2,mamba,rwkv6,t5}.py: nested lists of dicts
+with None leaves, such as a missing `output`, `rope_long` / `rope_short`,
+T5's `rel_b` past block 0 or `w_gate` of a ReLU T5).
+
+    Dense arrays (bf16 ones too, as ml_dtypes arrays) carry across in
+    `dtype` when it is given, else in their own dtype.
 
     Each JAX QTensor comes as a plain dict of its numpy fields and metadata
     (qs, scales, mins, d, dmin, sub, layout, q_offset, shape, kperm, gsub,
@@ -305,12 +311,16 @@ quantized) or an mmproj's (models/clip.py, all dense).
                 for e in range(tree["qs"].shape[0])]), device)
         return QTensor.from_host(_natural_uq(tree), device)
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device) for v in tree)
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
     if tree is None:
         return None
-    return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: widened exactly, then narrowed back
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype or torch.bfloat16)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device, dtype) if dtype is not None and t.is_floating_point() else t.to(device)
 
 
 def _cat_uq_rows(uqs: list) -> UQTensor:

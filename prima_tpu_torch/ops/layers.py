@@ -147,6 +147,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, n_heads, hd).to(q.dtype)
 
 
+def mm_t(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T for a dense weight, both promoted as jnp.matmul promotes them
+    (bf16 with f32 computes in f32); torch.matmul itself refuses mixed
+    dtypes."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt).T
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """SiLU(gate) * up (ggml_silu + ggml_mul)."""
     return (torch.nn.functional.silu(gate.float()) * up.float()).to(gate.dtype)

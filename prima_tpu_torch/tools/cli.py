@@ -17,8 +17,9 @@ by hand (else every rank profiles its device and rank 0 solves them), -k
 the cycles, -ngl the resident layers of each window (the rest stream from
 host memory; on one process -ngl runs the one-rank ring).
 
-Not yet ported (exit status 2): the t5, rwkv6, deepseek2 / minicpm3 and
-mamba runtimes.
+deepseek2 / minicpm3, t5 and rwkv6 GGUFs run one-shot on their own
+runtimes (greedy, the prefix recomputed or the state carried), mamba too,
+sampled at --temp > 0; as in the JAX CLI, -cnv runs them one-shot.
 """
 
 from __future__ import annotations
@@ -197,10 +198,6 @@ def _stream_generate(eng, model, sampler, prompt_tokens, n_predict, reverse: lis
     return text_out
 
 
-# archs the JAX CLI runs on runtimes of their own (t5, rwkv6, MLA, mamba)
-_UNPORTED_ARCHS = ("deepseek2", "minicpm3", "t5", "rwkv6", "mamba")
-
-
 def _read_prompt(args) -> str:
     prompt = args.prompt
     if args.file:
@@ -214,6 +211,34 @@ def _read_prompt(args) -> str:
     return prompt
 
 
+def _run_family(args, arch: str) -> int:
+    """One-shot generation on a family runtime of its own: greedy on the
+    correctness-tier runtimes (deepseek2 / minicpm3, t5, rwkv6; -n defaults
+    to 64), and for mamba the recurrent decode (-n defaults to 128), sampled
+    through the host sampler at --temp > 0."""
+    prompt = _read_prompt(args)
+    if arch == "t5":
+        from ..models.t5 import T5Runtime as runtime
+    elif arch == "rwkv6":
+        from ..models.rwkv6 import Rwkv6Runtime as runtime
+    elif arch == "mamba":
+        from ..models.mamba import MambaRuntime as runtime
+    else:
+        from ..models.deepseek2 import DeepseekV2Runtime as runtime
+    rt = runtime.load(args.model, device=args.device)
+    toks = rt.tokenizer.encode(prompt, add_special=True, parse_special=True)
+    if arch == "mamba":
+        n = args.n_predict if args.n_predict > 0 else 128
+        sampler = make_sampler(args, rt, rt.cfg.n_vocab) if args.temp > 0 else None
+        out = rt.generate(toks, n_predict=n, sampler=sampler)
+    else:
+        out = rt.generate(toks, n_predict=args.n_predict if args.n_predict > 0 else 64)
+    if not args.no_display_prompt:
+        sys.stdout.write(prompt)
+    sys.stdout.write(rt.tokenizer.decode(out) + "\n")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     from ..utils.args import apply_env_defaults
@@ -221,21 +246,26 @@ def main(argv=None) -> int:
     apply_env_defaults(parser)  # PRIMA_ARG_* / LLAMA_ARG_* fallbacks
     args = parser.parse_args(argv)
 
-    from ..gguf.reader import GGUFModel
-
-    probe = GGUFModel.open(args.model)
-    probe_arch = probe.arch
-    probe.close()
-    if probe_arch in _UNPORTED_ARCHS:
-        print(f"the {probe_arch} runtime is not yet ported to prima_tpu_torch",
-              file=sys.stderr)
-        return 2
     if args.world > 1 or args.n_gpu_layers >= 0:
         # -ngl on one process runs the one-rank ring: the window streamer
         # serves models larger than the device's memory
         from .cli_distributed import run_distributed
 
         return run_distributed(args, _read_prompt(args))
+
+    if args.verbose:
+        print(f"loading {args.model} ...", file=sys.stderr)
+
+    from ..gguf.reader import GGUFModel
+
+    probe = GGUFModel.open(args.model)
+    probe_arch = probe.arch
+    probe.close()
+    if probe_arch in ("deepseek2", "minicpm3", "t5", "rwkv6", "mamba"):
+        if args.conversation:
+            print(f"warning: -cnv is not supported on the {probe_arch} "
+                  "correctness-tier runtime; running one-shot", file=sys.stderr)
+        return _run_family(args, probe_arch)
 
     import torch
 
@@ -244,8 +274,6 @@ def main(argv=None) -> int:
     from ..models.loader import load_model, parse_kv_override
     from ..runtime.engine import Engine
 
-    if args.verbose:
-        print(f"loading {args.model} ...", file=sys.stderr)
     overrides = dict(parse_kv_override(s) for s in args.override_kv)
     model = load_model(args.model, device=args.device, fuse=args.fuse, kv_overrides=overrides)
     apply_rope_overrides(
