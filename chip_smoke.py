@@ -179,12 +179,37 @@ Phases, each of which fails the run on any error or mismatch:
                Flan-T5-Large in f32; each first at full width and 2 or 4
                layers in f32, the card's generate against one teacher-forced
                CPU forward (logits within 1e-3 of max |logit|, argmax and top
-               5 ids equal at every step), then at full depth: prefill ms,
+               5 ids equal at every step), then at full depth (DeepSeek-V2-
+               Lite at 14 of its 27 layers, to keep the script inside its 20
+               minutes): prefill ms,
                per-token wall and device ms, idle share, peak memory, and for
                Mamba and RWKV-6 the decode's logits against one full-sequence
                forward; then tiny deepseek2, minicpm3, mamba, rwkv6 and t5
                GGUFs through the CLI, card against --device cpu. None of
                these runs may launch a hand kernel.
+ 14. mesh    — the mesh plane (--pp/--tp/--dp) over torch.distributed, several
+               ranks on this card, so gloo with host staging (the transport is
+               printed): the 8B shape (Q4_K layers drawn on the card from
+               generators seeded by (seed, layer)) at pp 2 x tp 2, k = 2, 2
+               microbatches of 2 rows, world 4, f32 with f32 caches; 4 requests
+               of 128 prompt tokens and 32 greedy tokens through
+               DistributedEngine.step_fused against the one-process Engine over
+               the same weights (every decode step's logits within 1e-3 of max
+               |logit|, argmax equal save ties, equal streams), qgemv and
+               kv_store launches on every rank, prefill and decode tok/s, the
+               hop's and the all-reduces' ms and bytes, every rank's peak
+               memory and rank 0's idle share; sp = 2 at the 8B width over 2
+               layers with a 4000-token prompt against the one-process forward;
+               the streamed pipe (pp 2, k 2, half of each window streamed, bf16)
+               bit for bit against the resident pipe, each rank's peak against
+               k * n_res + 2 * (W - n_res) layers; the tiny pair's f32 server at
+               --pp 2 --tp 2 against the single-device server, and --lora over a
+               mesh exiting 1.
+ 15. train   — train_tiny_pair's step (autograd, clip, AdamW, the schedule) on
+               the tiny target shape for 50 steps on the card and on the CPU
+               from the same init and batches (losses within 1e-4 relative),
+               seconds a step, then save_gguf and 8 greedy tokens of the file,
+               card = CPU.
 The decoder writes K and V through the fused KV store; the byte-generic KV
 write runs where a saved slot is restored, so its launches are the server's
 (phase 3). The device-memory probe is on no serving path: its launches are
@@ -4848,8 +4873,14 @@ def family_card_vs_cpu(name: str, dev, seed: int) -> dict:
     return r
 
 
+# phase families runs DeepSeek-V2-Lite at 14 of its 27 layers (full width):
+# the script's 20-minute limit made room for phases mesh and train there
+FAMILY_FULL_LAYERS = {"deepseek2": 14}
+
+
 def family_full(name: str, dev, dtype, seed: int) -> dict:
-    """Full width and depth on the card, weights drawn there in `dtype`:
+    """Full width on the card (full depth but for FAMILY_FULL_LAYERS),
+    weights drawn there in `dtype`:
     the prompt's forward (prefill ms), then generate timed and profiled
     (profiled_wall: per-token wall and device ms, idle share), its launch
     counts (none of the hand kernels) and peak memory; for the recurrent
@@ -4861,7 +4892,7 @@ def family_full(name: str, dev, dtype, seed: int) -> dict:
     import torch
 
     shape, tree = FAMILY_TREES[name]
-    cfg = family_cfg(name)
+    cfg = family_cfg(name, FAMILY_FULL_LAYERS.get(name))
     mod = importlib.import_module("prima_tpu_torch.models." + FAMILY_RUNTIMES[name][0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5113,7 +5144,7 @@ def phase_families(dev, report: dict) -> None:
         r[name] = {"card_vs_cpu": check, "full": full, "seconds": time.time() - t0}
         log(f"families {name}: card vs CPU at {check['layers']} layers "
             f"{check['max_rel_logit_err']:.2e} over {check['steps']} steps "
-            f"({check['top5_steps_tied']} tied); full depth {full['dtype']} "
+            f"({check['top5_steps_tied']} tied); {full['layers']} layers {full['dtype']} "
             f"{full['weight_gib']:.2f} GiB: prefill {full['prefill_ms']:.1f} ms, "
             f"{full['wall_ms_a_token']:.1f} ms wall / {full['device_ms_a_token']:.2f} ms device a "
             f"token, idle {full['device_idle_share']:.3f}, peak {full['peak_gib']:.2f} GiB"
@@ -5131,21 +5162,554 @@ def phase_families(dev, report: dict) -> None:
         report[name]["families_launches"] = 0
 
 
+# -- phase mesh: the (dp, pp, sp, tp) mesh over torch.distributed -------------------------
+
+MESH_SEED = 13
+MESH_PROMPT, MESH_NEW = 128, 32
+MESH_WORK = os.path.join(ROOT, "build", "chip_smoke", "mesh")
+
+
+def mesh_plan(shape: dict, n_layers: int, dtype, k: int = 1, microbatches=None,
+              n_resident=None):
+    """A mesh of ranks on this card over the 8B shape cut to n_layers, each
+    rank drawing its own windows' Q4_K layers on the card from generators
+    seeded by (MESH_SEED, layer)."""
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.parallel.launch import RankPlan, init_multihost
+
+    cfg = tiny_config(**dict(LLAMA3_8B, n_layers=n_layers))
+    return RankPlan(shape, init_multihost()[0], ("synth_seeded", cfg, GGMLType.Q4_K, MESH_SEED),
+                    k_cycles=k, microbatches=microbatches, opts=ForwardOptions(dtype=dtype),
+                    device="cuda", n_resident=n_resident, timeout=300.0)
+
+
+def mesh_prompts(n: int, length: int, vocab: int, seed: int = MESH_SEED) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, length).tolist() for _ in range(n)]
+
+
+def mesh_serve4(eng, prompts: list) -> list:
+    """The prompts at once through submit + step_fused(max_chunk=8)."""
+    slots = [eng.submit(p, n_predict=MESH_NEW, request_id=i, reuse_prefix=False)
+             for i, p in enumerate(prompts)]
+    while any(s.state.name != "IDLE" for s in slots):
+        eng.step_fused(max_chunk=8)
+    return [list(s.generated) for s in slots]
+
+
+def cuda_busy_ms(prof) -> float:
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def mesh_main_rank0() -> dict:
+    """Rank 0 of the world-4 mesh (pp 2 x tp 2, k = 2, 2 microbatches of
+    2 rows) at the 8B shape in f32 with f32 caches: 4 requests of 128
+    prompt tokens and 32 greedy tokens, three times: counted and recorded
+    (every decode step's logits), timed, and profiled on rank 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from prima_tpu_torch.parallel.engine import DistributedEngine
+    from prima_tpu_torch.parallel.launch import build_rank, spawn_ranks, stop_ranks, worker_main
+
+    plan = mesh_plan({"dp": 1, "pp": 2, "sp": 1, "tp": 2}, 32, torch.float32, k=2,
+                     microbatches=2)
+    t0 = time.time()
+    procs = spawn_ranks(worker_main, plan, range(1, plan.world))
+    mesh = eng = None
+    try:
+        mesh, cfg, spec, params, _ = build_rank(plan, 0)
+        eng = DistributedEngine(cfg, params, spec, mesh, batch_per_micro=2, max_seq=512,
+                                n_batch=128, opts=plan.opts, kv_dtype=torch.float32)
+        eng.run_to_completion([1, 2, 3], n_predict=2)  # every rank's first launches
+        up_s = time.time() - t0
+        prompts = mesh_prompts(4, MESH_PROMPT, cfg.n_vocab)
+        eng.kernel_launches(reset=True)
+        eng.mesh_stats(reset=True)
+        rec, run = [], eng._run
+
+        def capture(cmd):
+            out = run(cmd)
+            if cmd[0] == "pass" and cmd[5] and cmd[1].shape[-1] == 1:
+                rec.append(out[:, :, -1].reshape(eng.n_slots, -1).float().cpu().numpy())
+            return out
+
+        eng._run = capture
+        streams = mesh_serve4(eng, prompts)
+        eng._run = run
+        launches = eng.kernel_launches(reset=True)
+        stats = eng.mesh_stats(reset=True)
+        for key in eng.perf:
+            eng.perf[key] = 0
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        timed = mesh_serve4(eng, prompts)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+        perf = dict(eng.perf)
+        timed_stats = eng.mesh_stats(reset=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mesh_serve4(eng, prompts)
+            torch.cuda.synchronize()
+        busy = cuda_busy_ms(prof)
+        eng.stop()
+        return {"world": plan.world, "transport": mesh.transport, "up_s": up_s,
+                "prompts": prompts, "streams": streams, "timed_streams_equal": timed == streams,
+                "logits": rec, "launches": launches, "stats": stats,
+                "timed_stats": timed_stats, "perf": perf, "wall_ms": wall,
+                "rank0_busy_ms": busy, "rank0_idle_share": 1 - busy / wall}
+    finally:
+        if mesh is not None:
+            mesh.close()
+        stop_ranks(procs)
+
+
+def mesh_sp_rank(plan, rank: int, prompt: list, dec: list):
+    """One rank of the sp = 2 mesh (2 layers at the 8B width, f32): the
+    prompt in one prefill pass into caches of 4096 cells in blocks of 2048,
+    then a decode pass for each token of `dec`; rank 0 returns the decode
+    logits."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.parallel.engine import PipeRank
+    from prima_tpu_torch.parallel.launch import build_rank
+
+    mesh, cfg, spec, params, _ = build_rank(plan, rank)
+    try:
+        r = PipeRank(cfg, params, spec, mesh, 1, 4096, plan.opts, torch.float32)
+        s = len(prompt)
+        pos = np.arange(s, dtype=np.int32)[None, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.execute(("pass", np.asarray([[prompt]]), pos, np.zeros((1, 1), np.int32), pos, False))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        logits = []
+        for i, tok in enumerate(dec):
+            p = np.full((1, 1, 1), s + i, np.int32)
+            out = r.execute(("pass", np.asarray([[[tok]]]), p, p[..., 0], p, True))
+            if rank == 0:
+                logits.append(out[0, 0, -1].float().cpu().numpy())
+        stats = mesh.gather_obj0(r.stats())
+        return None if rank else {"logits": logits, "prefill_s": prefill_s, "stats": stats}
+    finally:
+        mesh.close()
+
+
+def mesh_stream_rank(plan, rank: int, batches: list):
+    """One rank of the pp = 2, k = 2 pipe in bf16 over `batches`, resident
+    or streaming the first W - n_resident layers of each window; rank 0
+    returns the logits and every rank's memory against its bound."""
+    import torch
+
+    from prima_tpu_torch.parallel.engine import PipeRank
+    from prima_tpu_torch.parallel.launch import build_rank
+    from prima_tpu_torch.runtime.streaming import layer_nbytes
+
+    mesh, cfg, spec, params, streamer = build_rank(plan, rank)
+    try:
+        r = PipeRank(cfg, params, spec, mesh, 2, 256, plan.opts, torch.bfloat16, streamer)
+        dev = mesh.device
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        layer = next(l for l in params["layers"] if l is not None)
+        layer_bytes = layer_nbytes(layer)
+        held = sum(1 for l in params["layers"] if l is not None)
+        torch.cuda.reset_peak_memory_stats(dev)
+        up0 = streamer.uploads.bytes if streamer is not None else 0
+        outs, times = [], []
+        for tokens, positions, cache_pos in batches:
+            t0 = time.perf_counter()
+            out = r.execute(("pass", tokens, positions, cache_pos, positions, True))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if rank == 0:
+                outs.append(out.float().cpu().numpy())
+        w, k = spec.window, spec.k_cycles
+        n_res = w if plan.n_resident is None else plan.n_resident
+        mine = {"rank": rank, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                "after_build_gib": base / 2 ** 30, "layer_mib": layer_bytes / 2 ** 20,
+                "resident_layers_after_build": held,
+                "bound_layers": k * n_res + 2 * (w - n_res) if n_res < w else k * w,
+                "streamed_bytes_a_pass": ((streamer.uploads.bytes - up0) / len(batches)
+                                          if streamer is not None else 0),
+                "pass_ms": [t * 1e3 for t in times]}
+        ranks = mesh.gather_obj0(mine)
+        return None if rank else {"logits": outs, "ranks": ranks}
+    finally:
+        mesh.close()
+
+
+def mesh_case(case: str, out_path: str) -> int:
+    """A mesh case's rank 0, run as a process of its own (this script with
+    --mesh-case): it spawns the other ranks and pickles its result."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from prima_tpu_torch.parallel.launch import spawn_ranks, stop_ranks
+
+    if case == "main":
+        out = mesh_main_rank0()
+    elif case == "sp":
+        plan = mesh_plan({"dp": 1, "pp": 1, "sp": 2, "tp": 1}, 2, torch.float32)
+        prompt = mesh_prompts(1, 4000, LLAMA3_8B["n_vocab"], MESH_SEED + 1)[0]
+        dec = mesh_prompts(1, 2, LLAMA3_8B["n_vocab"], MESH_SEED + 2)[0]
+        procs = spawn_ranks(mesh_sp_rank, plan, [1], prompt, dec)
+        try:
+            out = dict(mesh_sp_rank(plan, 0, prompt, dec), prompt=prompt, dec=dec)
+        finally:
+            stop_ranks(procs)
+    elif case == "stream":
+        rng = np.random.default_rng(MESH_SEED + 3)
+        M, B, S = 2, 2, 64
+        batches = [(rng.integers(0, LLAMA3_8B["n_vocab"], (M, B, S)),
+                    np.broadcast_to(np.arange(S, dtype=np.int32), (M, B, S)).copy(),
+                    np.zeros((M, B), np.int32))]
+        for i in range(4):
+            p = np.full((M, B, 1), S + i, np.int32)
+            batches.append((rng.integers(0, LLAMA3_8B["n_vocab"], (M, B, 1)), p, p[..., 0]))
+        out = {}
+        for name, n_res in (("resident", None), ("streamed", 4)):
+            plan = mesh_plan({"dp": 1, "pp": 2, "sp": 1, "tp": 1}, 32, torch.bfloat16, k=2,
+                             microbatches=2, n_resident=n_res)
+            procs = spawn_ranks(mesh_stream_rank, plan, [1], batches)
+            try:
+                out[name] = mesh_stream_rank(plan, 0, batches)
+            finally:
+                stop_ranks(procs)
+    else:
+        raise ValueError(f"unknown mesh case {case!r}")
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def run_mesh_case(case: str, timeout: float = 600) -> dict:
+    import pickle
+
+    os.makedirs(MESH_WORK, exist_ok=True)
+    out = os.path.join(MESH_WORK, f"{case}.pkl")
+    logf = os.path.join(MESH_WORK, f"{case}.log")
+    with open(logf, "w") as lf:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh-case", case,
+                             "--mesh-out", out], cwd=ROOT, stdout=lf, stderr=subprocess.STDOUT,
+                            timeout=timeout).returncode
+    text = open(logf).read()
+    for line in text.splitlines():
+        if line.startswith("mesh "):
+            log(f"  {case}: {line}")
+    if rc != 0:
+        raise AssertionError(f"mesh case {case} exited {rc}:\n{text[-4000:]}")
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def tied_steps(got, want) -> tuple[bool, int]:
+    """Argmax equal at every (step, row), where a step whose top two lie
+    within twice the runs' difference counts as tied: (ok, ties)."""
+    import numpy as np
+
+    ties, ok = 0, True
+    for g, w in zip(got, want):
+        diff = float(np.abs(g - w).max())
+        for gr, wr in zip(g, w):
+            if gr.argmax() == wr.argmax():
+                continue
+            top = np.sort(wr)[-2:]
+            if top[1] - top[0] <= 2 * diff:
+                ties += 1
+            else:
+                ok = False
+    return ok, ties
+
+
+def mesh_reference(dev, prompts: list) -> tuple[list, list, float]:
+    """The one-process Engine (4 slots, kernels, f32) over the mesh's
+    seeded weights: streams, every decode step's logits, seconds."""
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.parallel.pipeline import synth_params_seeded
+    from prima_tpu_torch.runtime.engine import Engine
+
+    t0 = time.time()
+    cfg = tiny_config(**LLAMA3_8B)
+    params = synth_params_seeded(cfg, GGMLType.Q4_K, MESH_SEED, dev)
+    eng = Engine(cfg, params, n_slots=4, max_seq=512, n_batch=128,
+                 opts=ForwardOptions(dtype=torch.float32), kv_dtype=torch.float32, device=dev)
+    rec, raw = [], eng._decode_raw
+
+    def capture(*a):
+        logits, caches = raw(*a)
+        rec.append(logits.float().cpu().numpy())
+        return logits, caches
+
+    eng._decode_raw = capture
+    eng._fused_gen.fwd = capture
+    streams = mesh_serve4(eng, prompts)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return streams, rec, time.time() - t0
+
+
+def mesh_sp_reference(dev, prompt: list, dec: list) -> list:
+    """The one-process forward over the same 2 layers: the prompt, then
+    the decode tokens, the decode logits."""
+    import torch
+
+    from prima_tpu_torch.gguf.constants import GGMLType
+    from prima_tpu_torch.models.config import tiny_config
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+    from prima_tpu_torch.parallel.pipeline import synth_params_seeded
+
+    cfg = tiny_config(**dict(LLAMA3_8B, n_layers=2))
+    params = synth_params_seeded(cfg, GGMLType.Q4_K, MESH_SEED, dev)
+    opts = ForwardOptions(dtype=torch.float32)
+    kv = init_kv_caches(cfg, 1, 4096, torch.float32, dev)
+    t = lambda a, dt=torch.int32: torch.as_tensor(a, dtype=dt, device=dev)
+    s = len(prompt)
+    with torch.no_grad():
+        forward(params, cfg, t([prompt], torch.int64), t([list(range(s))]), kv, t([0]), opts,
+                return_hidden=True)
+        out = []
+        for i, tok in enumerate(dec):
+            lg, _ = forward(params, cfg, t([[tok]], torch.int64), t([[s + i]]), kv,
+                            t([s + i]), opts)
+            out.append(lg[0, -1].float().cpu().numpy())
+    del params, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_server(report: dict) -> None:
+    """The tiny pair's f32 server at --pp 2 --tp 2 (four ranks on this
+    card) against the single-device server; --lora over a mesh exits 1."""
+    flags = ["--dtype", "f32", "-ctk", "f32", "-np", "4", "-c", "256", "-b", "64"]
+    bodies = [{"prompt": p, "n_predict": 16, "temperature": 0}
+              for p in ("Once upon a time", "The quick brown fox", "def main():",
+                        "import numpy as np")]
+    texts = {}
+    for name, extra in (("single", []), ("mesh", ["--pp", "2", "--tp", "2"])):
+        proc, port, out, up = _start_server(flags + extra)
+        try:
+            texts[name] = _texts(port, bodies, concurrent=True)
+            if name == "mesh":
+                props = _get(port, "/props")
+                report["server_launches_by_rank"] = props.get("kernel_launches_by_rank")
+                report["server_transport"] = next((l.strip() for l in out
+                                                   if l.startswith("mesh ")), None)
+        finally:
+            _stop(proc)
+        report[f"server_{name}_up_s"] = up
+    report["server_texts_equal"] = texts["mesh"] == texts["single"]
+    rc = subprocess.run([sys.executable, "-m", "prima_tpu_torch.server", "-m", TINY, "--pp",
+                         "2", "--tp", "2", "--lora", "x.gguf"], cwd=ROOT, capture_output=True,
+                        text=True, timeout=120)
+    report["lora_refused"] = rc.returncode == 1 and "--lora" in rc.stderr
+    log(f"mesh server --pp 2 --tp 2 (tiny pair, f32): texts equal the single-device server's "
+        f"{report['server_texts_equal']}, launches by rank {report['server_launches_by_rank']}; "
+        f"--lora exits 1: {report['lora_refused']}")
+    if not (report["server_texts_equal"] and report["lora_refused"]):
+        raise AssertionError(f"mesh server: {texts}, lora rc {rc.returncode} {rc.stderr[-500:]}")
+
+
+def phase_mesh(dev, report: dict) -> dict:
+    """The mesh plane on this card. Returns the main run's launches of
+    qgemv and kv_store, summed over its ranks."""
+    import numpy as np
+
+    r: dict = {}
+    t0 = time.time()
+    m = run_mesh_case("main")
+    r["main_s"] = time.time() - t0
+    ref_streams, ref_logits, r["reference_s"] = mesh_reference(dev, m["prompts"])
+    got = m.pop("logits")
+    errs = [float(np.abs(g - w).max()) for g, w in zip(got, ref_logits)]
+    scale = max(float(np.abs(w).max()) for w in ref_logits)
+    ok, ties = tied_steps(got, ref_logits)
+    launches = m["launches"]
+    per_rank = [{k: v for k, v in b.items() if v} for b in launches["by_rank"]]
+    stats = m["timed_stats"]
+    hop = [s["mesh"]["hop"] for s in stats]
+    ar = [s["mesh"]["all_reduce"] for s in stats]
+    perf = m["perf"]
+    r["main"] = {
+        "world": m["world"], "transport": m["transport"], "up_s": m["up_s"],
+        "steps": len(got), "reference_steps": len(ref_logits),
+        "max_abs_logit_err": max(errs), "max_abs_logit": scale,
+        "rel_err": max(errs) / scale, "tolerance": f"max|err| <= {LOGITS_TOL} * max|logit|",
+        "argmax_equal": ok, "tied_steps": ties, "streams_equal": m["streams"] == ref_streams,
+        "timed_streams_equal": m["timed_streams_equal"], "launches_by_rank": per_rank,
+        "prefill_tok_s": perf["n_prompt"] / perf["t_prompt_s"],
+        "decode_tok_s": perf["n_decode"] / perf["t_decode_s"], "perf": perf,
+        "wall_ms": m["wall_ms"], "rank0_idle_share": m["rank0_idle_share"],
+        "rank0_busy_ms": m["rank0_busy_ms"],
+        "hop_ms_by_rank": [h[1] * 1e3 for h in hop], "hops_by_rank": [h[0] for h in hop],
+        "hop_bytes_each": [s["hop_bytes"] / max(s["hops"], 1) for s in stats],
+        "all_reduce_ms_by_rank": [a[1] * 1e3 for a in ar],
+        "all_reduces_by_rank": [a[0] for a in ar],
+        "broadcast_ms_by_rank": [s["mesh"]["broadcast"][1] * 1e3 for s in stats],
+        "gather_ms_by_rank": [s["mesh"]["gather"][1] * 1e3 for s in stats],
+        "peak_gib_by_rank": [s["peak_bytes"] / 2 ** 30 for s in m["stats"]],
+    }
+    mm = r["main"]
+    log(f"mesh main: world {mm['world']} ({mm['transport']}) pp 2 x tp 2, k 2, 8B Q4_K f32: "
+        f"{mm['steps']} decode steps, logits max |err| {mm['max_abs_logit_err']:.3e} of "
+        f"{scale:.3e} ({mm['rel_err']:.2e}), argmax equal {ok} ({ties} tied), streams equal "
+        f"{mm['streams_equal']}; prefill {mm['prefill_tok_s']:.1f} tok/s, decode "
+        f"{mm['decode_tok_s']:.1f} tok/s; rank 0 idle {mm['rank0_idle_share']:.3f}; hop ms "
+        f"{[round(x, 1) for x in mm['hop_ms_by_rank']]} ({mm['hops_by_rank']} hops of "
+        f"{[int(b) for b in mm['hop_bytes_each']]} B), all-reduce ms "
+        f"{[round(x, 1) for x in mm['all_reduce_ms_by_rank']]} ({mm['all_reduces_by_rank']}); "
+        f"peak GiB {[round(x, 2) for x in mm['peak_gib_by_rank']]}; launches {per_rank}")
+    if not (mm["rel_err"] <= LOGITS_TOL and ok and mm["streams_equal"]
+            and mm["steps"] == mm["reference_steps"] == MESH_NEW and mm["timed_streams_equal"]):
+        raise AssertionError("mesh main: the mesh disagrees with the one-process engine")
+    if not all(b.get("qgemv", 0) > 0 and b.get("kv_store", 0) > 0 for b in per_rank):
+        raise AssertionError(f"mesh main: a rank launched no qgemv / kv_store: {per_rank}")
+
+    t0 = time.time()
+    sp = run_mesh_case("sp")
+    want = mesh_sp_reference(dev, sp["prompt"], sp["dec"])
+    errs = [float(np.abs(g - w).max()) for g, w in zip(sp["logits"], want)]
+    scale = max(float(np.abs(w).max()) for w in want)
+    ok, ties = tied_steps([g[None] for g in sp["logits"]], [w[None] for w in want])
+    r["sp"] = {"prompt_tokens": len(sp["prompt"]), "rel_err": max(errs) / scale,
+               "argmax_equal": ok, "tied": ties, "prefill_s": sp["prefill_s"],
+               "all_reduces_by_rank": [s["mesh"]["all_reduce"][0] for s in sp["stats"]],
+               "all_reduce_ms_by_rank": [s["mesh"]["all_reduce"][1] * 1e3 for s in sp["stats"]],
+               "seconds": time.time() - t0}
+    log(f"mesh sp = 2 (8B width, 2 layers, {len(sp['prompt'])}-token prompt, caches of 4096 in "
+        f"blocks of 2048): decode logits rel err {r['sp']['rel_err']:.2e}, argmax equal {ok}; "
+        f"prefill {sp['prefill_s']:.2f} s; {r['sp']['seconds']:.1f} s")
+    if not (r["sp"]["rel_err"] <= LOGITS_TOL and ok):
+        raise AssertionError("mesh sp: disagrees with the one-process forward")
+
+    t0 = time.time()
+    st = run_mesh_case("stream")
+    equal = all(np.array_equal(a, b) for a, b in zip(st["resident"]["logits"],
+                                                     st["streamed"]["logits"]))
+    ranks = st["streamed"]["ranks"]
+    # the streamed rank may hold what the resident one holds beside its
+    # layers, plus bound_layers layers and 0.5 GiB of temporaries
+    bound_ok = all(rk["peak_gib"] <= res["peak_gib"] + 0.5 + (
+        rk["bound_layers"] - res["resident_layers_after_build"]) * rk["layer_mib"] / 1024
+        for rk, res in zip(ranks, st["resident"]["ranks"]))
+    r["stream"] = {"bit_equal": equal, "resident": st["resident"]["ranks"], "streamed": ranks,
+                   "within_bound": bound_ok, "seconds": time.time() - t0}
+    log(f"mesh streamed pipe (pp 2, k 2, W 8, 4 resident, bf16): logits bit for bit = resident "
+        f"{equal}; streamed {[round(rk['streamed_bytes_a_pass'] / 2 ** 30, 3) for rk in ranks]} "
+        f"GiB a pass; peak GiB streamed {[round(rk['peak_gib'], 2) for rk in ranks]} vs resident "
+        f"{[round(rk['peak_gib'], 2) for rk in st['resident']['ranks']]} (bound "
+        f"{ranks[0]['bound_layers']} of 16 layers of {ranks[0]['layer_mib']:.0f} MiB); "
+        f"{r['stream']['seconds']:.1f} s")
+    if not (equal and bound_ok):
+        raise AssertionError("mesh streamed pipe: not equal to the resident pipe or over bound")
+
+    t0 = time.time()
+    mesh_server(r)
+    r["server_s"] = time.time() - t0
+    report["mesh"] = r
+    total = launches["total"]
+    for name in ("qgemv", "kv_store"):
+        report[name]["mesh_launches"] = [b.get(name, 0) for b in launches["by_rank"]]
+    return {"qgemv": total["qgemv"], "kv_store": total["kv_store"]}
+
+
+# -- phase train: train_tiny_pair on autograd, card against CPU ---------------------------
+
+
+def phase_train(dev, report: dict) -> None:
+    """The tiny target shape (4, 256, 4, 704) for 50 steps on the card and
+    on the CPU from the same init and batches: losses within 1e-4 relative
+    at every step; then save_gguf into a scratch directory and 8 greedy
+    tokens of the result through the port's loader, card = CPU."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models.llama import ForwardOptions
+    from prima_tpu_torch.models.loader import load_model
+    from prima_tpu_torch.runtime.engine import Engine
+    from prima_tpu_torch.tools import train_tiny_pair as tool
+
+    t_phase = time.time()
+    cfg = tool.make_cfg(4, 256, 4, 704)
+    data = tool.encode_bytes(tool.gather_corpus(1 << 20))
+    rng = np.random.default_rng(MESH_SEED)
+    offs = rng.integers(0, data.shape[0] - 129, (50, 8))
+    batches = [np.stack([data[o:o + 129] for o in row]).astype(np.int64) for row in offs]
+    losses, secs, trained = {}, {}, None
+    card = str(dev)
+    for device in (card, "cpu"):
+        params = tool._map(tool.init_params(cfg, 0),
+                           lambda t: t.to(device).requires_grad_(True))
+        tr = tool.Trainer(params, cfg, 3e-3, 50, device)
+        xs = [torch.from_numpy(b).to(device) for b in batches]
+        t0 = time.perf_counter()
+        out = [float(v) for v in torch.stack([tr.step(x) for x in xs]).cpu()]
+        losses[device], secs[device] = out, (time.perf_counter() - t0) / len(xs)
+        trained = trained or params
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[card], losses["cpu"])]
+    work = os.path.join(ROOT, "build", "chip_smoke", "train")
+    os.makedirs(work, exist_ok=True)
+    path = tool.save_gguf(os.path.join(work, "target.gguf"), cfg, trained, "chip-smoke")
+    toks = {}
+    for device in (card, "cpu"):
+        m = load_model(path, device=device)
+        eng = Engine(m.cfg, m.params, n_slots=1, max_seq=64,
+                     opts=ForwardOptions(dtype=torch.float32), kv_dtype=torch.float32,
+                     device=device)
+        toks[device] = eng.run_to_completion(m.tokenizer.encode("def main():", add_special=True),
+                                             n_predict=8)
+    r = {"steps": len(batches), "max_rel_loss_diff": max(rel), "loss_first": losses[card][0],
+         "loss_last": losses[card][-1], "card_s_a_step": secs[card],
+         "cpu_s_a_step": secs["cpu"], "greedy_card": toks[card], "greedy_cpu": toks["cpu"],
+         "seconds": time.time() - t_phase}
+    report["train"] = r
+    log(f"train: 50 steps of the tiny target (4, 256, 4, 704), batch 8 x 128, card vs CPU: max "
+        f"rel loss diff {r['max_rel_loss_diff']:.2e} (loss {r['loss_first']:.4f} -> "
+        f"{r['loss_last']:.4f}); {secs[card] * 1e3:.1f} ms a step on the card, "
+        f"{secs['cpu'] * 1e3:.1f} on the CPU; save_gguf -> 8 greedy tokens card = CPU "
+        f"{toks[card] == toks['cpu']}; {r['seconds']:.1f} s")
+    if not (r["max_rel_loss_diff"] <= 1e-4 and toks[card] == toks["cpu"]):
+        raise AssertionError("train: the card disagrees with the CPU")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,server,full,long,spec,ring,moe,tools,quant,embed,vision,"
-                            "families",
+                            "families,mesh,train",
                     help="comma-separated subset of build,kernels,server,full,long,spec,ring,"
-                         "moe,tools,quant,embed,vision,families")
+                         "moe,tools,quant,embed,vision,families,mesh,train")
     # rank 1 of phase ring's full-width ring runs this script with these
     ap.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ring-out", help=argparse.SUPPRESS)
+    # rank 0 of a phase mesh case runs this script with these
+    ap.add_argument("--mesh-case", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if args.ring_rank is not None:
         return ring_worker_main(args.ring_port, args.ring_out)
+    if args.mesh_case is not None:
+        return mesh_case(args.mesh_case, args.mesh_out)
 
     import torch
 
@@ -5268,6 +5832,17 @@ def main() -> int:
         t0 = time.time()
         phase_families(dev, report)
         log(f"families: {time.time() - t0:.1f} s")
+    # the mesh's served run (every rank's counts, summed) joins the
+    # counts of qgemv and kv_store
+    if "mesh" in phases:
+        t0 = time.time()
+        for name, n in phase_mesh(dev, report).items():
+            launches[name] = (launches.get(name) or 0) + n
+        log(f"mesh: {time.time() - t0:.1f} s")
+    if "train" in phases:
+        t0 = time.time()
+        phase_train(dev, report)
+        log(f"train: {time.time() - t0:.1f} s")
     launches["kv_write"] = report.get("server_long_context", {}).get(
         "launches", {}).get("kv_write")
     launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")

@@ -25,9 +25,10 @@ import torch
 from ..gguf.constants import GGMLType, TYPE_TRAITS
 from ..gguf.reader import GGUFModel, TensorInfo
 from ..ops.attention import flash_attention
-from ..ops.kvquant import KVQ4, KVQ8, update_kv_pair
+from ..ops.kvquant import KVQ4, KVQ8, kv_seq_len, update_kv_pair, update_kv_sp
 from ..ops.layers import (alibi_mask, alibi_slopes, apply_rope, causal_mask, gated_act,
-                          gqa_attention, layer_norm, rms_norm, rope_freqs)
+                          gqa_attention, gqa_attention_sp, layer_norm, rms_norm,
+                          rope_freqs)
 from ..quant.dequant_np import dequantize_tensor
 from ..quant.device_format import SUPPORTED_TYPES, UQTensor, to_device_format
 from ..quant.qmatmul import MAX_B, qgemv_indexed_plain, qmatmul, qmatmul_indexed
@@ -467,6 +468,84 @@ def synth_layer_device(cfg: ModelConfig, gen: torch.Generator,
     return layer
 
 
+def synth_host_layer(cfg: ModelConfig, i: int, ggml_type: GGMLType = GGMLType.Q4_K,
+                     seed: int = 0) -> dict:
+    """Host (UQTensor / numpy) tensors for one synthetic layer, drawn as
+    the JAX package draws them (prima_tpu/models/llama.py:653-674): the
+    input unit of pipeline / tp sharding in tests against that package."""
+    rng = np.random.default_rng(seed * 1000003 + i)
+    e, h, kvh, hd, f = cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ff
+    layer = {
+        "attn_norm": np.ones(e, dtype=np.float32),
+        "wq": _synth_uq(rng, h * hd, e, ggml_type),
+        "wk": _synth_uq(rng, kvh * hd, e, ggml_type),
+        "wv": _synth_uq(rng, kvh * hd, e, ggml_type),
+        "wo": _synth_uq(rng, e, h * hd, ggml_type),
+        "ffn_norm": np.ones(e, dtype=np.float32),
+        "w_gate": _synth_uq(rng, f, e, ggml_type),
+        "w_up": _synth_uq(rng, f, e, ggml_type),
+        "w_down": _synth_uq(rng, e, f, ggml_type),
+    }
+    if cfg.qkv_bias:
+        layer["bq"] = rng.standard_normal(h * hd).astype(np.float32) * 0.02
+        layer["bk"] = rng.standard_normal(kvh * hd).astype(np.float32) * 0.02
+        layer["bv"] = rng.standard_normal(kvh * hd).astype(np.float32) * 0.02
+    return layer
+
+
+def synth_host_head(cfg: ModelConfig, ggml_type: GGMLType = GGMLType.Q4_K,
+                    seed: int = 0) -> dict:
+    """Host tensors for the embedding, output norm and head (synthetic)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "tok_embd": _synth_uq(rng, cfg.n_vocab, cfg.n_embd, ggml_type),
+        "output_norm": np.ones(cfg.n_embd, dtype=np.float32),
+        "output": (None if cfg.tie_embeddings
+                   else _synth_uq(rng, cfg.n_vocab, cfg.n_embd, ggml_type)),
+    }
+
+
+def _synth_uq(rng, rows, k, t: GGMLType) -> UQTensor:
+    """A UQTensor of ~N(0, 0.02) weights drawn from rng, without a GGUF
+    round trip (prima_tpu/models/llama.py:782-827)."""
+    if t == GGMLType.Q4_K:
+        sub, layout, off = 32, "nib4", 0
+        qs = rng.integers(0, 256, size=(rows, k // 2), dtype=np.uint16).astype(np.uint8)
+    elif t == GGMLType.Q4_0:
+        sub, layout, off = 32, "nib4", -8
+        qs = rng.integers(0, 256, size=(rows, k // 2), dtype=np.uint16).astype(np.uint8)
+    elif t in (GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K):
+        sub = 32 if t != GGMLType.Q6_K else 16
+        layout, off = "int8", 0
+        lim = {GGMLType.Q8_0: 127, GGMLType.Q6_K: 31, GGMLType.Q5_K: 31}[t]
+        qs = rng.integers(-lim, lim + 1, size=(rows, k), dtype=np.int16).astype(np.int8)
+    else:
+        raise NotImplementedError(f"synth for {t.name}")
+    qmax = {GGMLType.Q4_K: 15, GGMLType.Q4_0: 8, GGMLType.Q8_0: 127, GGMLType.Q6_K: 31,
+            GGMLType.Q5_K: 31}[t]
+    s = k // sub
+    gsub = {GGMLType.Q4_K: 8, GGMLType.Q5_K: 8, GGMLType.Q6_K: 16}.get(t, 1)
+    if s % gsub:
+        gsub = 1  # synthetic sub-superblock shapes: flat scales
+    if gsub > 1:
+        has_mins = t in (GGMLType.Q4_K, GGMLType.Q5_K)
+        codes = rng.integers(1, 64, size=(rows, s), dtype=np.int16).astype(np.int8)
+        mcodes = (rng.integers(0, 32, size=(rows, s), dtype=np.int16).astype(np.int8)
+                  if has_mins else None)
+        # bases rounded to f16 values, like real GGUF d / dmin
+        d = ((np.abs(rng.standard_normal((rows, s // gsub))) * (0.02 / qmax / 32)
+              + 1e-6).astype(np.float16)).astype(np.float32)
+        dmin = ((np.abs(rng.standard_normal((rows, s // gsub))) * (0.01 / qmax / 32)
+                 ).astype(np.float16)).astype(np.float32) if has_mins else None
+        return UQTensor(qs, codes, mcodes, sub, layout, off, t, (rows, k),
+                        d=d, dmin=dmin, gsub=gsub)
+    scales = (np.abs(rng.standard_normal((rows, s))) * 0.02 / qmax + 1e-4).astype(np.float32)
+    mins = None
+    if t in (GGMLType.Q4_K, GGMLType.Q5_K):
+        mins = (scales * rng.uniform(0, qmax / 2, size=scales.shape)).astype(np.float32)
+    return UQTensor(qs, scales, mins, sub, layout, off, t, (rows, k))
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -478,6 +557,19 @@ class ForwardOptions:
     attn_impl: str = "plain"  # "kernel" = the flash attention kernels
     dtype: torch.dtype = torch.bfloat16
     logits_dtype: torch.dtype = torch.float32
+    # tensor parallelism (parallel/tp.py): wq/wk/wv/gate/up are row-sharded
+    # (local heads, local FFN columns), wo/down column-sharded, and their
+    # partial outputs are summed over this group (a parallel.mesh.Axis)
+    tp_group: Any = None
+    # sequence parallelism: the caches hold this group's shard of the T
+    # axis; attention runs per shard and combines by log-sum-exp
+    # (ops/layers.gqa_attention_sp)
+    sp_group: Any = None
+
+
+def _tp_sum(y: torch.Tensor, opts: ForwardOptions) -> torch.Tensor:
+    """The sum of the tp ranks' partial outputs (the JAX psum over tp)."""
+    return y if opts.tp_group is None else opts.tp_group.all_reduce(y)
 
 
 def _flash_route(cfg: ModelConfig, opts: ForwardOptions) -> bool:
@@ -553,23 +645,37 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, inv_freq, cfg.rope_type, mscale)
         k = apply_rope(k, positions, inv_freq, cfg.rope_type, mscale)
     k_cache, v_cache = kv
-    update_kv_pair(k_cache, v_cache, k, v, cache_pos)
     scale = cfg.attn_scale or 1.0 / np.sqrt(hd)
-    if _flash_route(cfg, opts):
-        # the caches as they are stored: the decode kernel reads a quantized
-        # cache's codes, with no dense copy
+    if opts.sp_group is not None:
+        # this shard holds global cells [offset, offset + t_loc): the write
+        # drops the rows outside it and the mask is the shard's columns
+        # (prima_tpu/models/llama.py:929-961)
+        if cfg.attn_logit_softcap or cfg.alibi_max_bias:
+            raise NotImplementedError("sequence parallelism with softcap/ALiBi attention")
+        t_loc = kv_seq_len(k_cache)
+        offset = opts.sp_group.index * t_loc
+        update_kv_sp(k_cache, k, cache_pos, offset)
+        update_kv_sp(v_cache, v, cache_pos, offset)
         mp = positions if mask_pos is None else mask_pos
-        out = flash_attention(q, k_cache, v_cache, mp.to(torch.int32), scale)
+        out = gqa_attention_sp(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                               causal_mask(mp - offset, t_loc), scale, opts.sp_group)
     else:
-        slopes = (alibi_slopes(h, cfg.alibi_max_bias) if cfg.alibi_max_bias else None)
-        out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, scale,
-                            cfg.attn_logit_softcap, slopes)
+        update_kv_pair(k_cache, v_cache, k, v, cache_pos)
+        if _flash_route(cfg, opts):
+            # the caches as they are stored: the decode kernel reads a
+            # quantized cache's codes, with no dense copy
+            mp = positions if mask_pos is None else mask_pos
+            out = flash_attention(q, k_cache, v_cache, mp.to(torch.int32), scale)
+        else:
+            slopes = (alibi_slopes(h, cfg.alibi_max_bias) if cfg.alibi_max_bias else None)
+            out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, scale,
+                                cfg.attn_logit_softcap, slopes)
     out = out.reshape(b, s, h * hd)
     if cfg.sub_norms and layer.get("attn_sub_norm") is not None:
         out = rms_norm(out, layer["attn_sub_norm"], cfg.rms_eps)  # bitnet, before wo
     _tap(taps, tap_prefix + "attn_output.weight", out)
     out = _scaled(linear_l(layer, "wo", out, opts.matmul_impl), layer, "wo_scale")
-    return _biased(out, layer, "bo")
+    return _biased(_tp_sum(out, opts), layer, "bo")  # the bias once, after the sum
 
 
 def _tap(taps: dict | None, name: str, x: torch.Tensor) -> None:
@@ -602,7 +708,7 @@ def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions, act_fn: str = 
     if gated and layer.get("w_gateup") is not None:
         gate, up = linear(x, layer["w_gateup"], opts.matmul_impl).chunk(2, dim=-1)
         out = linear_l(layer, "w_down", gated_act(gate, up, act_fn), opts.matmul_impl)
-        return _biased(out, layer, "b_down")
+        return _biased(_tp_sum(out, opts), layer, "b_down")
     up = _biased(_scaled(linear_l(layer, "w_up", x, opts.matmul_impl), layer, "w_up_scale"),
                  layer, "b_up")
     if gated:
@@ -618,7 +724,7 @@ def ffn_block(layer: dict, x: torch.Tensor, opts: ForwardOptions, act_fn: str = 
         act = rms_norm(act, layer["ffn_sub_norm"], eps)  # bitnet, before ffn_down
     _tap(taps, tap_prefix + "ffn_down.weight", act)
     out = _scaled(linear_l(layer, "w_down", act, opts.matmul_impl), layer, "w_down_scale")
-    return _biased(out, layer, "b_down")
+    return _biased(_tp_sum(out, opts), layer, "b_down")
 
 
 def expert_rows(w, e: int, n_expert: int):
@@ -711,7 +817,7 @@ def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
         sh = linear(gated_act(sh_gate, sh_up, cfg.act), layer["ffn_down_shexp"],
                     opts.matmul_impl)
         out = out + sh * g.to(x.dtype)
-    return out
+    return _tp_sum(out, opts)
 
 
 def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,

@@ -137,3 +137,25 @@ def update_kv_pair(k_cache, v_cache, k_new: torch.Tensor, v_new: torch.Tensor,
 
 def kv_seq_len(cache) -> int:
     return cache.shape[1]
+
+
+def update_kv_sp(cache, new: torch.Tensor, cache_pos: torch.Tensor, offset: int):
+    """Sequence-parallel write (prima_tpu/ops/kvquant.py:137-160): `cache`
+    holds this rank's (B, T_loc, H, D) block of global cells [offset,
+    offset + T_loc), and the rows of new (B, S, H, D) at the global
+    positions cache_pos (B,) + i that fall outside it are dropped, so a
+    prefill chunk across two blocks writes each part on its owner. In
+    place; returns the cache. The TPU kernel is not on this path in the
+    JAX package (a scatter there), so plain indexing is its port."""
+    b, s = new.shape[:2]
+    idx = cache_pos.to(torch.int64)[:, None] + torch.arange(s, device=new.device) - offset
+    keep = (idx >= 0) & (idx < kv_seq_len(cache))
+    rows = torch.arange(b, device=new.device)[:, None].expand(b, s)[keep]
+    cells = idx[keep]
+    if is_quantized(cache):
+        q, sc = cache.quantize(new)
+        cache.qs[rows, cells] = q[keep]
+        cache.scale[rows, cells] = sc[keep]
+    else:
+        cache[rows, cells] = new.to(cache.dtype)[keep]
+    return cache

@@ -189,3 +189,29 @@ def causal_mask(pos_q: torch.Tensor, t: int, seq_lens: torch.Tensor | None = Non
         visible &= cols < seq_lens[:, None, None]
     zero = torch.zeros((), dtype=torch.float32, device=pos_q.device)
     return torch.where(visible, zero, float("-inf"))[:, None]
+
+
+def gqa_attention_sp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, scale: float, group) -> torch.Tensor:
+    """Sequence-parallel GQA (prima_tpu/ops/layers.py:210-245): k / v
+    (b, t_loc, KVH, hd) are this rank's block of the cache and mask
+    (b, 1, s, t_loc) its columns. Each rank scores its block, then the
+    softmax combines over `group` (a parallel.mesh.Axis) by log-sum-exp:
+    an all-reduce MAX of the row maxima, then SUMs of the exponentials and
+    of their products with v. A block that is wholly masked adds
+    exp(-inf - m) = 0; position 0 is visible on the first block, so every
+    row's maximum is finite."""
+    b, s, n_heads, hd = q.shape
+    n_kv = k.shape[2]
+    group_sz = n_heads // n_kv
+    qg = q.reshape(b, s, n_kv, group_sz, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float()) * scale
+    scores = scores + mask[:, None]
+    m = group.all_reduce(scores.amax(dim=-1, keepdim=True), "max")  # (b,n,g,s,1)
+    p = torch.exp(scores - m)
+    l = group.all_reduce(p.sum(dim=-1, keepdim=True), "sum")
+    acc = group.all_reduce(
+        torch.einsum("bngst,btnh->bsngh", p.to(v.dtype).float(), v.float()), "sum")
+    l_t = torch.clamp(l[..., 0], min=1e-30).permute(0, 3, 1, 2)  # (b,s,n,g)
+    out = acc / l_t[..., None]
+    return out.reshape(b, s, n_heads, hd).to(q.dtype)

@@ -1,7 +1,8 @@
 """State save/load: session files and per-slot KV serialization.
 
-Counterpart of prima_tpu/runtime/state.py for the per-layer cache (the
-port's only layout). A slot's KV rows trimmed to its used length, as f32,
+Counterpart of prima_tpu/runtime/state.py for the per-layer cache and the
+mesh's (parallel/pipe_kv.PipeKV: gathered to rank 0 and scattered from it,
+:42-46, :89-94 there). A slot's KV rows trimmed to its used length, as f32,
 its token history and the model-shape metadata go into one .npz. The
 format, STATE_MAGIC and STATE_VERSION are the JAX package's, so a file
 saved by either package restores in the other; a model with per-layer KV
@@ -39,6 +40,12 @@ def _meta(engine, n_tokens: int) -> dict:
     }
 
 
+def _is_pipe(engine) -> bool:
+    from ..parallel.pipe_kv import PipeKV
+
+    return isinstance(engine.kv, PipeKV)
+
+
 def slot_save(engine, slot_id: int, path: str) -> int:
     """Save one slot's sequence state; returns the tokens saved."""
     used = engine.kv.used(slot_id)
@@ -49,9 +56,14 @@ def slot_save(engine, slot_id: int, path: str) -> int:
         tokens = tokens[:n_keep] + tokens[n_keep + n_discard:]
     tokens = tokens[: used + 1]
     arrays = {}
-    for li, (k, v) in enumerate(engine.kv.caches):
-        arrays[f"k{li}"] = materialize_row(k, slot_id)[:used].float().cpu().numpy()
-        arrays[f"v{li}"] = materialize_row(v, slot_id)[:used].float().cpu().numpy()
+    if _is_pipe(engine):  # the mesh's cache: gathered to rank 0 in layer order
+        ks, vs = engine.kv.materialize_slot(slot_id, used)
+        for li in range(engine.cfg.n_layers):
+            arrays[f"k{li}"], arrays[f"v{li}"] = ks[li], vs[li]
+    else:
+        for li, (k, v) in enumerate(engine.kv.caches):
+            arrays[f"k{li}"] = materialize_row(k, slot_id)[:used].float().cpu().numpy()
+            arrays[f"v{li}"] = materialize_row(v, slot_id)[:used].float().cpu().numpy()
     with open(path, "wb") as f:  # the exact path (np.savez would append .npz)
         np.savez_compressed(f, meta=json.dumps(_meta(engine, used)),
                             tokens=np.asarray(tokens, dtype=np.int32), **arrays)
@@ -76,11 +88,15 @@ def slot_restore(engine, slot_id: int, path: str) -> int:
         if used > engine.max_seq:
             raise ValueError(f"{path}: state length {used} > max_seq {engine.max_seq}")
         tokens = [int(t) for t in z["tokens"]]
+        if _is_pipe(engine):  # scattered from rank 0 to the ranks that hold the slot
+            stack = lambda c: np.stack([np.asarray(z[f"{c}{li}"], np.float32)
+                                        for li in range(engine.cfg.n_layers)])
+            engine.kv.restore_slot(slot_id, stack("k"), stack("v"), used)
         # the saved cells go into the slot's row at cell 0 through the KV
         # write kernel (requantized for a quantized cache); cells past them
         # stay as they are, hidden by the write index
         start = torch.zeros(1, dtype=torch.int32, device=engine.device)
-        for li, (k, v) in enumerate(engine.kv.caches):
+        for li, (k, v) in enumerate([] if _is_pipe(engine) else engine.kv.caches):
             for cache, name in ((k, f"k{li}"), (v, f"v{li}")):
                 if used:
                     cells = torch.from_numpy(np.asarray(z[name], np.float32))

@@ -5,9 +5,9 @@ Counterpart of prima_tpu/server/__main__.py on one device (CUDA unless
 decoding with a draft model (-md). With -w > 1 it serves over the TCP
 ring: every rank runs the command with its --rank, rank 0 answers HTTP
 over a TcpRingEngine and the others serve their windows (-lw, -k, -ngl as
-in the CLI). The mesh options of the JAX server (--pp / --tp / --dp) are
-not carried yet and raise a "not yet ported" error instead of being
-ignored. A bert / nomic-bert GGUF is served by serve_embeddings
+in the CLI). With --pp / --tp / --dp it serves over the mesh
+(parallel/engine.DistributedEngine): this process is rank 0 and spawns the
+other ranks of its host. A bert / nomic-bert GGUF is served by serve_embeddings
 (/v1/embeddings, /v1/rerank). `-c 0` takes the GGUF's context_length key
 (2048 without it) before any branch, as the JAX server does.
 """
@@ -86,11 +86,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--api-key-file", default=env("API_KEY_FILE"))
     ap.add_argument("--override-kv", action="append", default=[],
                     metavar="KEY=TYPE:VALUE")
-    ap.add_argument("--pp", type=int, default=1)
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--dp", type=int, default=1)
+    # distributed (mesh) mode: serve a piped-ring pipelined model, the
+    # analogue of llama-server driving the distributed ring
+    # (server.cpp:2431 llama_decode(ctx, batch_view, true))
+    ap.add_argument("--pp", type=int, default=int(env("PP", 1)),
+                    help="pipeline stages (layer windows over the mesh)")
+    ap.add_argument("--tp", type=int, default=int(env("TP", 1)),
+                    help="tensor-parallel ranks per stage")
+    ap.add_argument("--dp", type=int, default=int(env("DP", 1)),
+                    help="data-parallel replicas")
     ap.add_argument("-k", "--n-cycles", type=int, default=0,
-                    help="piped-ring cycles per token (0 = solver-chosen)")
+                    help="piped-ring cycles per token (reference -k; "
+                         "0 = solver-chosen in ring mode, 1 in mesh mode)")
     # multi-process (TCP ring) mode: one server process per rank, rank 0
     # serves HTTP (the reference's llama-server -w/--rank flow)
     ap.add_argument("-w", "--world", type=int, default=int(env("WORLD", 1)),
@@ -111,9 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> str | None:
-    """The first requested option this port does not carry yet."""
-    if args.pp * args.tp * args.dp > 1:
-        return "--pp / --tp / --dp"
+    """The first requested option this port does not carry yet: none is
+    left, every option of the JAX server is served."""
     return None
 
 
@@ -166,6 +172,8 @@ def main(argv=None) -> int:
 
     if args.world > 1:
         return _ring_main(args)
+    if args.pp * args.tp * args.dp > 1:
+        return _mesh_main(args)
 
     import torch
 
@@ -235,6 +243,118 @@ def main(argv=None) -> int:
 
 def _interrupt(signum, frame):
     raise KeyboardInterrupt
+
+
+# a worker rank waits this long for rank 0's next command: a server may sit
+# idle between requests (the data collectives keep the mesh's own timeout)
+MESH_IDLE_TIMEOUT = 30 * 86400.0
+
+
+def _mesh_main(args) -> int:
+    """Mesh-distributed serving (prima_tpu/server/__main__.py:157-197):
+    slots live on the pipeline's microbatch grid (pp microbatches of
+    ceil(-np / pp) rows, rounded up to a multiple of dp). This process is
+    rank 0 (HTTP and the DistributedEngine) and spawns the other ranks of
+    its host; hosts join through PRIMA_COORDINATOR / PRIMA_NUM_PROCS /
+    PRIMA_PROC_ID (parallel/launch.py), where a launcher other than 0
+    serves its ranks and no HTTP."""
+    if args.lora or args.lora_scaled:
+        print("--lora is not supported in mesh-distributed mode", file=sys.stderr)
+        return 1
+    import torch
+
+    from ..models.llama import ForwardOptions
+    from ..models.loader import LoadedModel
+    from ..parallel.engine import DistributedEngine
+    from ..parallel.launch import (RankPlan, build_rank, init_multihost, spawn_ranks,
+                                   stop_ranks, worker_main)
+    from ..tokenizer import Tokenizer
+    from .app import serve
+
+    shape = {"dp": args.dp, "pp": args.pp, "sp": 1, "tp": args.tp}
+    world = args.dp * args.pp * args.tp
+    init_method, n_procs, proc_id = init_multihost()
+    if world % n_procs:
+        print(f"a mesh of {world} ranks does not split over {n_procs} hosts", file=sys.stderr)
+        return 1
+    local = world // n_procs
+    micro = max(args.pp, 1)
+    bpm = max(1, -(-args.parallel // micro))  # slots = micro * bpm
+    bpm = -(-bpm // args.dp) * args.dp  # dp shards the microbatch rows
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    plan = RankPlan(
+        shape, init_method, ("gguf", args.model), k_cycles=args.n_cycles or 1,
+        microbatches=micro,
+        opts=ForwardOptions(matmul_impl=args.matmul, dtype=dtypes[args.dtype]),
+        device=args.device,
+        local_world=local, ctrl_timeout=MESH_IDLE_TIMEOUT,
+        rope=dict(rope_scaling=args.rope_scaling, rope_freq_base=args.rope_freq_base,
+                  rope_freq_scale=args.rope_freq_scale, yarn_orig_ctx=args.yarn_orig_ctx,
+                  yarn_ext_factor=args.yarn_ext_factor,
+                  yarn_attn_factor=args.yarn_attn_factor,
+                  yarn_beta_fast=args.yarn_beta_fast, yarn_beta_slow=args.yarn_beta_slow))
+    base = proc_id * local
+    procs = spawn_ranks(worker_main, plan, range(base + 1, base + local))
+    if proc_id != 0:
+        try:
+            worker_main(plan, base)
+        finally:
+            stop_ranks(procs)
+        return 0
+    engine = mesh = None
+    try:
+        mesh, cfg, spec, params, streamer = build_rank(plan, 0)
+        from ..gguf.reader import GGUFModel
+
+        m = GGUFModel.open(args.model)
+        model = LoadedModel(cfg, params, Tokenizer.from_gguf(m), m)
+        engine = DistributedEngine(
+            cfg, params, spec, mesh, batch_per_micro=bpm, max_seq=args.ctx_size,
+            n_batch=args.batch_size, opts=plan.opts,
+            kv_dtype=dtypes.get(args.cache_type, args.cache_type),
+            eog_ids=model.eog_ids, ctx_shift=not args.no_context_shift and args.grp_attn_n == 1,
+            n_keep=args.keep, grp_attn_n=args.grp_attn_n, grp_attn_w=args.grp_attn_w,
+            streamer=streamer)
+        bos = model.tokenizer.vocab.bos_id
+        engine.run_to_completion([bos if bos >= 0 else 0], n_predict=1)  # warmup
+        print("warmup done", file=sys.stderr)
+        spec_dec = None
+        if args.model_draft:
+            # the draft whole on rank 0, the target verified over the mesh
+            # (prima_tpu/runtime/speculative.py:14)
+            from ..models.loader import load_model
+            from ..runtime.engine import Engine
+            from ..runtime.speculative import SpeculativeDecoder
+
+            dmodel = load_model(args.model_draft, device=mesh.device)
+            deng = Engine(dmodel.cfg, dmodel.params, n_slots=engine.n_slots,
+                          max_seq=args.ctx_size, opts=plan.opts, eog_ids=dmodel.eog_ids,
+                          device=mesh.device)
+            spec_dec = SpeculativeDecoder(engine, deng, n_draft=args.draft_max,
+                                          p_min=args.draft_p_min)
+        httpd, _ctx = serve(model, engine, args.host, args.port, args.alias, spec=spec_dec,
+                            slot_save_dir=args.slot_save_path, api_keys=_load_api_keys(args))
+    except BaseException:
+        if engine is not None:
+            engine.stop()
+        if mesh is not None:
+            mesh.close()
+        stop_ranks(procs, timeout=5)
+        raise
+    print(f"listening on http://{args.host}:{args.port} (mesh dp={args.dp} pp={args.pp} "
+          f"tp={args.tp})", file=sys.stderr, flush=True)
+    signal.signal(signal.SIGTERM, _interrupt)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        _ctx.worker.shutdown()
+        httpd.server_close()
+        engine.stop()
+        mesh.close()
+        stop_ranks(procs)
+    return 0
 
 
 def _ring_main(args) -> int:

@@ -225,6 +225,7 @@ def make_handler(ctx: ServerContext):
                 self.end_headers()
                 self.wfile.write(data)
             elif path == "/props":
+                launches, by_rank = self._launches()
                 self._json(200, {
                     "model": ctx.alias,
                     "n_ctx": ctx.engine.max_seq,
@@ -232,7 +233,8 @@ def make_handler(ctx: ServerContext):
                     "chat_template": ctx.chat_template or "",
                     "arch": ctx.model.cfg.arch,
                     "n_params_layers": ctx.model.cfg.n_layers,
-                    "kernel_launches": kernel_launches(),
+                    "kernel_launches": launches,
+                    **({"kernel_launches_by_rank": by_rank} if by_rank else {}),
                 })
             elif path == "/metrics":
                 m = ctx.worker.metrics
@@ -249,7 +251,7 @@ def make_handler(ctx: ServerContext):
                     f"llamacpp:requests_total {m['n_requests']}",
                     "# TYPE prima:kernel_launches_total counter",
                 ] + [f'prima:kernel_launches_total{{kernel="{k}"}} {n}'
-                     for k, n in kernel_launches().items()]
+                     for k, n in self._launches()[0].items()]
                 data = ("\n".join(lines) + "\n").encode()
                 self.send_response(200)
                 self.send_header("Content-Type", "text/plain; version=0.0.4")
@@ -273,6 +275,14 @@ def make_handler(ctx: ServerContext):
                 self._json(200, slots)
             else:
                 self._error(404, f"unknown endpoint {path}")
+
+        def _launches(self):
+            """(launch counts, per rank or None): a mesh engine gathers every
+            rank's counts on its worker thread, between steps."""
+            if hasattr(ctx.engine, "kernel_launches"):
+                r = ctx.worker.run(ctx.engine.kernel_launches)
+                return r["total"], r["by_rank"]
+            return kernel_launches(), None
 
         # -- POST ----------------------------------------------------------------
 
@@ -530,11 +540,9 @@ def _usage(req: GenerationRequest) -> dict:
 
 def kernel_launches() -> dict[str, int]:
     """Launch counts of the port's CUDA kernels (0 on the CPU)."""
-    return {c.name: c.count for c in (qmatmul.launches, qmatmul.indexed_launches,
-                                      kv_write.launches,
-                                      kv_write.store_launches,
-                                      attention.decode_launches,
-                                      attention.prefill_launches)}
+    from ..parallel.engine import launch_counts
+
+    return launch_counts()
 
 
 def serve(model: LoadedModel, engine: Engine, host: str = "127.0.0.1", port: int = 8080,

@@ -151,6 +151,12 @@ def test_long_context_options_are_accepted():
 
 
 def test_unported_options_exit_with_error(capsys):
+    """The mesh options are served now (tests/test_torch_mesh_server.py);
+    what still exits with an error is the JAX server's own refusal: a LoRA
+    adapter over a mesh exits 1 before any rank starts."""
+    from prima_tpu_torch.server.__main__ import _unported, build_parser
+
     for flags in (["--pp", "2"], ["--tp", "2"]):
-        assert server_main(["-m", PAIR, "--device", "cpu", *flags]) == 2
-        assert "not yet ported" in capsys.readouterr().err
+        assert _unported(build_parser().parse_args(["-m", PAIR, *flags])) is None
+        assert server_main(["-m", PAIR, "--device", "cpu", "--lora", "a.gguf", *flags]) == 1
+        assert "--lora is not supported in mesh-distributed mode" in capsys.readouterr().err
