@@ -210,6 +210,20 @@ Phases, each of which fails the run on any error or mismatch:
                from the same init and batches (losses within 1e-4 relative),
                seconds a step, then save_gguf and 8 greedy tokens of the file,
                card = CPU.
+ 16. native  — the native C++ layer at full width: a Llama-3-8B-shape GGUF of
+               32 layers (types from QuantPlanner at Q4_K_M, seeded block
+               bytes, a BPE vocabulary learned from the repository's
+               Markdown) written by the port's GGUFWriter and loaded with
+               load_model(device="cuda"): every quantized tensor converted
+               natively, seconds and GB/s split into block conversion and H2D
+               copies, peak host RSS and device memory, then 4 requests of 64
+               + 16 greedy tokens through step_fused (qgemv and kv_store
+               launched); the same widths at 8 layers loaded natively and
+               under PRIMA_NO_NATIVE=1 (no conversion counted): every QTensor
+               field, the 4 streams and one f32 decode step's logits equal bit
+               for bit; ~200 KB of that Markdown through the native and Python
+               merge loops of the BPE and of an SPM vocabulary (equal ids,
+               MB/s).
 The decoder writes K and V through the fused KV store; the byte-generic KV
 write runs where a saved slot is restored, so its launches are the server's
 (phase 3). The device-memory probe is on no serving path: its launches are
@@ -226,6 +240,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import http.client
@@ -1246,8 +1261,9 @@ def phase_server_f32(report: dict) -> None:
     # the byte tokenizer starts every text with the 3 bytes of its space mark
     lora_tokens = [tok.encode(t, add_special=False)[3:] for t in LORA_TEXTS]
     t0 = time.time()
-    card = _f32_server_run("cuda", lora, lora_tokens)
-    cpu = _f32_server_run("cpu", lora, lora_tokens)
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:  # independent processes
+        runs = [ex.submit(_f32_server_run, d, lora, lora_tokens) for d in ("cuda", "cpu")]
+        card, cpu = (f.result() for f in runs)
     for key, texts in card.items():
         log(f"f32 server {key}: card {texts!r}")
         if texts != cpu[key]:
@@ -3000,8 +3016,9 @@ def read_counts(counters: dict) -> dict:
 
 
 def tools_bench() -> dict:
-    """bench_tool --synth 8b -p 512 -n 128 -b 1,4 -r 3 -o json through its
-    main, the launch counts of that run."""
+    """bench_tool --synth 8b -p 512 -n 128 -b 1,4 -r 1 -o json through its
+    main, the launch counts of that run (one repetition: the script's time
+    limit)."""
     import torch
 
     from prima_tpu_torch.tools import bench_tool
@@ -3009,7 +3026,7 @@ def tools_bench() -> dict:
     counters = zero_counts()
     t0 = time.time()
     rc, out, err = tool_call(bench_tool.main, ["--synth", "8b", "-p", "512", "-n", "128",
-                                               "-b", "1,4", "-r", "3", "-o", "json"])
+                                               "-b", "1,4", "-r", "1", "-o", "json"])
     wall = time.time() - t0
     launches = read_counts(counters)
     gc.collect()
@@ -5504,7 +5521,8 @@ def mesh_server(report: dict) -> None:
               for p in ("Once upon a time", "The quick brown fox", "def main():",
                         "import numpy as np")]
     texts = {}
-    for name, extra in (("single", []), ("mesh", ["--pp", "2", "--tp", "2"])):
+
+    def serve(name: str, extra: list) -> None:
         proc, port, out, up = _start_server(flags + extra)
         try:
             texts[name] = _texts(port, bodies, concurrent=True)
@@ -5516,6 +5534,11 @@ def mesh_server(report: dict) -> None:
         finally:
             _stop(proc)
         report[f"server_{name}_up_s"] = up
+
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:  # independent processes
+        runs = [ex.submit(serve, "single", []), ex.submit(serve, "mesh", ["--pp", "2", "--tp", "2"])]
+        for f in runs:
+            f.result()
     report["server_texts_equal"] = texts["mesh"] == texts["single"]
     rc = subprocess.run([sys.executable, "-m", "prima_tpu_torch.server", "-m", TINY, "--pp",
                          "2", "--tp", "2", "--lora", "x.gguf"], cwd=ROOT, capture_output=True,
@@ -5690,13 +5713,509 @@ def phase_train(dev, report: dict) -> None:
         raise AssertionError("train: the card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: native — the C++ block converter and merge loops at full width
+# ---------------------------------------------------------------------------
+
+NATIVE_SEED = 14
+NATIVE_MERGES = 1000  # learned from the text in ~2 s of host time
+NATIVE_TEXT_CHARS = 200_000
+# an f16 scale base per block, times a uniform draw in [0.5, 1.5): weights
+# with a standard deviation of ~0.02 (Q4_K: d * sc * q - dmin * m with
+# dmin = 7.5 d centres each row; Q6_K: d * sc * q, int8 sc, |q| <= 32,
+# subnormal in f16, which the converter decodes too)
+NATIVE_D = {"Q4_K": 1e-4, "Q6_K": 1.2e-5}
+
+
+def repo_text() -> str:
+    """The repository's own Markdown files at its root, concatenated in name
+    order, cut to ~200 KB: the text both tokenizer paths encode."""
+    import glob
+
+    parts = [open(p, encoding="utf-8").read() for p in sorted(glob.glob(os.path.join(ROOT, "*.md")))]
+    return "".join(parts)[:NATIVE_TEXT_CHARS]
+
+
+def learn_merges(text: str, n_merges: int) -> list[tuple[str, str]]:
+    """Byte-level BPE merges learned from `text`: the most frequent adjacent
+    pair over its words (ties to the greater pair), merged in every word that
+    holds it, with the pair counts kept up to date word by word."""
+    from collections import defaultdict
+
+    import regex
+
+    from prima_tpu_torch.tokenizer.bpe import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    words = Counter("".join(b2u[b] for b in w.encode("utf-8"))
+                    for w in regex.findall(r" ?\w+| ?[^\s\w]+|\s+", text))
+    seqs = {w: list(w) for w in words}
+    pairs, where = Counter(), defaultdict(set)
+    for w, n in words.items():
+        for p in zip(seqs[w], seqs[w][1:]):
+            pairs[p] += n
+            where[p].add(w)
+    merges = []
+    while len(merges) < n_merges and pairs:
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        for w in where.pop(best):
+            s, n = seqs[w], words[w]
+            for p in zip(s, s[1:]):
+                pairs[p] -= n
+                if not pairs[p]:
+                    del pairs[p]
+            out, i = [], 0
+            while i < len(s):
+                if i + 1 < len(s) and (s[i], s[i + 1]) == best:
+                    out.append(s[i] + s[i + 1])
+                    i += 2
+                else:
+                    out.append(s[i])
+                    i += 1
+            seqs[w] = out
+            for p in zip(out, out[1:]):
+                pairs[p] += n
+                where[p].add(w)
+    return merges
+
+
+def seeded_blocks(rng, t, rows: int, cols: int):
+    """GGUF blocks of `t` (Q4_K or Q6_K) for a (rows, cols) tensor: random
+    bytes from `rng`, each block's f16 d (and Q4_K's dmin) set to a finite
+    small value."""
+    import numpy as np
+
+    size = {"Q4_K": 144, "Q6_K": 210}[t.name]
+    n = rows * cols // 256
+    raw = rng.bit_generator.random_raw(-(-n * size // 8)).view(np.uint8)[:n * size]
+    raw = raw.reshape(n, size)
+    d = (NATIVE_D[t.name] * (0.5 + rng.random(n))).astype(np.float16)
+    if t.name == "Q4_K":
+        raw[:, 0:2] = d.view(np.uint8).reshape(n, 2)
+        raw[:, 2:4] = (d.astype(np.float32) * 7.5).astype(np.float16).view(np.uint8).reshape(n, 2)
+    else:
+        raw[:, 208:210] = d.view(np.uint8).reshape(n, 2)
+    return raw.reshape(rows, -1)
+
+
+def write_native_gguf(path: str, merges: list, n_layers: int, seed: int) -> dict:
+    """A Llama-3-8B-shape GGUF (bench.py:94-98) of `n_layers` layers written
+    by the port's GGUFWriter: each tensor's type from QuantPlanner at Q4_K_M
+    (Q4_K, Q6_K for output and half of attn_v / ffn_down), its blocks from
+    seeded_blocks, and a byte-level BPE vocabulary (the 256 byte symbols,
+    the learned merges, then reserved control tokens up to 128256)."""
+    import numpy as np
+
+    from prima_tpu_torch.gguf.writer import GGUFWriter
+    from prima_tpu_torch.quant.type_rules import QuantPlanner
+    from prima_tpu_torch.tokenizer.bpe import bytes_to_unicode
+
+    c = LLAMA3_8B
+    e, f, v, hd = c["n_embd"], c["n_ff"], c["n_vocab"], c["head_dim"]
+    nq, nkv = c["n_heads"] * hd, c["n_kv_heads"] * hd
+    w = GGUFWriter(path, arch="llama")
+    for key, val in {"block_count": n_layers, "embedding_length": e,
+                     "attention.head_count": c["n_heads"],
+                     "attention.head_count_kv": c["n_kv_heads"], "feed_forward_length": f,
+                     "context_length": c["n_ctx_train"], "attention.layer_norm_rms_epsilon": 1e-5,
+                     "rope.freq_base": c["rope_base"], "rope.dimension_count": c["rope_dim"],
+                     "vocab_size": v}.items():
+        w.add_kv(f"llama.{key}", val)
+    tokens = list(bytes_to_unicode().values())
+    tokens += list(dict.fromkeys(a + b for a, b in merges if a + b not in tokens))
+    n_text = len(tokens)
+    tokens += ["<|begin_of_text|>", "<|end_of_text|>"]
+    tokens += [f"<|reserved_special_token_{i}|>" for i in range(v - len(tokens))]
+    for key, val in {"model": "gpt2", "pre": "llama-bpe", "tokens": tokens,
+                     "token_type": [1] * n_text + [3] * (v - n_text),
+                     "merges": [f"{a} {b}" for a, b in merges],
+                     "bos_token_id": n_text, "eos_token_id": n_text + 1}.items():
+        w.add_kv(f"tokenizer.ggml.{key}", val)
+    planner = QuantPlanner("Q4_K_M", n_layer=n_layers, n_gqa=c["n_heads"] // c["n_kv_heads"])
+    rng = np.random.default_rng(seed)
+    types = Counter()
+
+    def quant(name: str, rows: int, cols: int) -> None:
+        t = planner.get_type(name, (rows, cols))
+        w.add_tensor(name, seeded_blocks(rng, t, rows, cols), ne=(cols, rows), ggml_type=t)
+        types[t.name] += 1
+
+    quant("token_embd.weight", v, e)
+    for i in range(n_layers):
+        p = f"blk.{i}."
+        w.add_tensor(p + "attn_norm.weight", np.ones(e, np.float32))
+        for name, rows in (("attn_q", nq), ("attn_k", nkv), ("attn_v", nkv), ("attn_output", e)):
+            quant(p + name + ".weight", rows, e if name != "attn_output" else nq)
+        w.add_tensor(p + "ffn_norm.weight", np.ones(e, np.float32))
+        quant(p + "ffn_gate.weight", f, e)
+        quant(p + "ffn_up.weight", f, e)
+        quant(p + "ffn_down.weight", e, f)
+    w.add_tensor("output_norm.weight", np.ones(e, np.float32))
+    quant("output.weight", v, e)
+    w.write()
+    if set(types) != {"Q4_K", "Q6_K"}:
+        raise AssertionError(f"native: the Q4_K_M planner gave {dict(types)}")
+    return {"types": dict(types), "quantized": sum(types.values()),
+            "bytes": os.path.getsize(path), "text_tokens": n_text}
+
+
+def write_spm_vocab(path: str, merges: list, text: str) -> None:
+    """An SPM (llama-model) vocabulary: <unk> <s> </s>, the 256 byte tokens,
+    each character of `text`, then each merge that decodes to text, scored
+    by its rank (the earliest merge scores highest)."""
+    from prima_tpu_torch.gguf.writer import GGUFWriter
+    from prima_tpu_torch.tokenizer.bpe import bytes_to_unicode
+
+    u2b = {u: b for b, u in bytes_to_unicode().items()}
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types, scores = [2, 3, 3] + [6] * 256, [0.0] * len(tokens)
+    chars = sorted(set(text.replace(" ", "▁")))
+    tokens += chars
+    types += [1] * len(chars)
+    scores += [-1e6] * len(chars)
+    seen = set(tokens)
+    for rank, (a, b) in enumerate(merges):
+        try:
+            piece = bytes(u2b[ch] for ch in a + b).decode("utf-8").replace(" ", "▁")
+        except UnicodeDecodeError:
+            continue  # a merge inside a multibyte character
+        if piece not in seen:
+            seen.add(piece)
+            tokens.append(piece)
+            types.append(1)
+            scores.append(-float(rank))
+    w = GGUFWriter(path, arch="llama")
+    for key, val in {"model": "llama", "tokens": tokens, "scores": scores,
+                     "token_type": types}.items():
+        w.add_kv(f"tokenizer.ggml.{key}", val)
+    w.write()
+
+
+@contextlib.contextmanager
+def timed_calls(acc: dict, patches: list):
+    """Inside the block, each (module or class, function name, key) of
+    `patches` adds its calls' seconds to acc[key]. Under the key "h2d" (the
+    patched torch.Tensor.to) only a copy from the host to the card counts,
+    and the card is synchronized first, so the copy is inside the time."""
+    import torch
+
+    saved = [(owner, name, getattr(owner, name), name in vars(owner))
+             for owner, name, _ in patches]
+
+    def wrap(fn, key):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if key == "h2d":
+                if a[0].device.type != "cpu" or out.device.type == "cpu":
+                    return out
+                torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return out
+        return timed
+
+    for (owner, name, key), (_, _, fn, _) in zip(patches, saved):
+        setattr(owner, name, wrap(fn, key))
+    try:
+        yield
+    finally:
+        for owner, name, fn, own in saved:
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)  # the inherited method again
+
+
+@contextlib.contextmanager
+def host_rss_peak(out: dict):
+    """out["gib"]: this process's peak resident size over the block, sampled
+    every 10 ms from /proc/self/statm (/proc/self/status may lack VmHWM)."""
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    peak = [rss()]
+    stop = threading.Event()
+
+    def sample() -> None:
+        while not stop.wait(0.01):
+            peak[0] = max(peak[0], rss())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join()
+        out["gib"] = max(peak[0], rss()) / 2 ** 30
+
+
+def native_load(path: str, dev, numpy_route: bool):
+    """load_model(path) on the card, natively or with PRIMA_NO_NATIVE=1 (the
+    numpy route), timed: seconds in all, in block conversion and in the
+    host-to-device copies; the conversions counted; peak host and device
+    memory."""
+    import torch
+
+    from prima_tpu_torch import native
+    from prima_tpu_torch.models import llama
+    from prima_tpu_torch.models.loader import load_model
+    from prima_tpu_torch.quant import qtensor
+
+    patches = [(torch.Tensor, "to", "h2d")]
+    patches += ([(llama, "to_device_format", "convert"), (qtensor, "pack_scales_np", "convert")]
+                if numpy_route else [(qtensor, "native_convert", "convert")])
+    acc = {"convert": 0.0, "h2d": 0.0}
+    host = {}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = native.CONVERTED.count
+    if numpy_route:
+        os.environ["PRIMA_NO_NATIVE"] = "1"
+    t0 = time.perf_counter()
+    try:
+        with host_rss_peak(host), timed_calls(acc, patches):
+            m = load_model(path, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("PRIMA_NO_NATIVE", None)
+    secs = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    r = {"route": "numpy" if numpy_route else "native", "seconds": secs,
+         "convert_s": acc["convert"], "h2d_s": acc["h2d"],
+         "other_s": secs - acc["convert"] - acc["h2d"], "gb_s": size / secs / 1e9,
+         "convert_gb_s": size / acc["convert"] / 1e9, "h2d_gb_s": size / acc["h2d"] / 1e9,
+         "converted": native.CONVERTED.count - before,
+         "peak_host_gib": host["gib"],
+         "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    return m, r
+
+
+def param_leaves(tree, prefix: str = ""):
+    """(path, QTensor or tensor) leaves of a params tree."""
+    import torch
+
+    from prima_tpu_torch.quant.qtensor import QTensor
+
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            yield from param_leaves(val, f"{prefix}{key}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, val in enumerate(tree):
+            yield from param_leaves(val, f"{prefix}{i}.")
+    elif isinstance(tree, (QTensor, torch.Tensor)):
+        yield prefix.rstrip("."), tree
+
+
+def params_bits_equal(a: dict, b: dict) -> tuple[int, list]:
+    """(QTensors compared, paths whose fields or metadata differ) of two
+    params trees, every field bit for bit on the card."""
+    import torch
+
+    from prima_tpu_torch.quant.qtensor import QTensor
+
+    la, lb = dict(param_leaves(a)), dict(param_leaves(b))
+    bad = sorted(set(la) ^ set(lb))
+    n = 0
+    for key in sorted(set(la) & set(lb)):
+        x, y = la[key], lb[key]
+        if isinstance(x, QTensor):
+            n += 1
+            same = (isinstance(y, QTensor)
+                    and all((u is None and w is None) or (u is not None and w is not None
+                                                          and u.dtype == w.dtype
+                                                          and torch.equal(u, w))
+                            for u, w in zip(x.tensors(), y.tensors()))
+                    and (x.sub, x.layout, x.q_offset, x.shape, x.gsub, x.packed)
+                    == (y.sub, y.layout, y.q_offset, y.shape, y.gsub, y.packed))
+        else:
+            same = isinstance(y, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y)
+        if not same:
+            bad.append(key)
+    return n, bad
+
+
+def tokenize_both(tok, text: str) -> dict:
+    """The ids and MB/s of `tok` over `text` through its native merge loop
+    and through its Python one (the vocab's cached native tokenizer set
+    aside)."""
+    from prima_tpu_torch.tokenizer import native as tok_native
+
+    v = tok.vocab
+    if tok_native.get(v) is None:
+        raise AssertionError("native: the native tokenizer did not load")
+    mb = len(text.encode("utf-8")) / 1e6
+    t0 = time.perf_counter()
+    ids_native = tok.encode(text, add_special=False)
+    t_native = time.perf_counter() - t0
+    saved = v._native_tok
+    object.__setattr__(v, "_native_tok", None)
+    try:
+        t0 = time.perf_counter()
+        ids_python = tok.encode(text, add_special=False)
+        t_python = time.perf_counter() - t0
+    finally:
+        object.__setattr__(v, "_native_tok", saved)
+    return {"ids": len(ids_native), "equal": ids_native == ids_python,
+            "native_mb_s": mb / t_native, "python_mb_s": mb / t_python,
+            "speedup": t_python / t_native}
+
+
+def native_serve(m, dev, prompts: list) -> tuple[list, dict]:
+    """The streams of 16 greedy tokens `m` gives for `prompts` through
+    submit + step_fused (4 slots), with this run's launch counts and tok/s."""
+    import torch
+
+    from prima_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(m.cfg, m.params, n_slots=4, max_seq=256, device=dev)
+    eng.run_to_completion(prompts[0][:16], n_predict=2)  # warm-up, not counted
+    eng.perf = {k: 0 * v for k, v in eng.perf.items()}
+    counters = zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = engine_streams(eng, prompts, n_predict=16)
+    torch.cuda.synchronize()
+    p = eng.perf
+    return streams, {"wall_s": time.perf_counter() - t0, "launches": read_counts(counters),
+                     "decode_tok_s": p["n_decode"] / p["t_decode_s"],
+                     "prefill_tok_s": p["n_prompt"] / p["t_prompt_s"]}
+
+
+def log_load(x: dict, what: str) -> None:
+    log(f"native: load_model {x['route']}, {what}: {x['seconds']:.2f} s, {x['gb_s']:.3f} GB/s "
+        f"(conversion {x['convert_s']:.2f} s at {x['convert_gb_s']:.3f} GB/s, H2D "
+        f"{x['h2d_s']:.2f} s at {x['h2d_gb_s']:.3f} GB/s, the rest {x['other_s']:.2f} s); "
+        f"{x['converted']} native conversions; peak host RSS {x['peak_host_gib']:.2f} GiB, "
+        f"device {x['peak_device_gib']:.2f} GiB")
+
+
+def phase_native(dev, report: dict) -> dict:
+    """The native layer at full width: a Llama-3-8B-shape Q4_K_M GGUF of all
+    32 layers written from a seed, loaded natively (timed, every quantized
+    tensor converted) and serving 4 requests of 64 + 16 greedy tokens
+    through step_fused (qgemv and kv_store launched); the same widths at 8
+    layers loaded natively and through the numpy route (the numpy load of
+    32 layers alone takes ~30 s of the script's time limit): every QTensor
+    field, the streams and one f32 decode step's logits equal bit for bit;
+    ~200 KB of the repository's text through the native and Python merge
+    loops of a BPE and an SPM vocabulary (equal ids)."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch import native
+    from prima_tpu_torch.gguf.reader import GGUFModel
+    from prima_tpu_torch.models.llama import ForwardOptions, forward, init_kv_caches
+    from prima_tpu_torch.tokenizer import Tokenizer
+
+    t_phase = time.time()
+    built = not os.path.exists(native._target(native.SOURCES, native.BUILD_DIR))
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("native: the C++ library did not load (g++ or PRIMA_NO_NATIVE=1)")
+    r = {"library": lib._name, "library_built": built, "library_s": time.time() - t_phase,
+         "host_cores": os.cpu_count(), "card": card_line()}
+    work = os.path.join(ROOT, "build", "chip_smoke", "native")
+    os.makedirs(work, exist_ok=True)
+    text = repo_text()
+    t0 = time.time()
+    merges = learn_merges(text, NATIVE_MERGES)
+    r["merges"], r["merges_s"] = len(merges), time.time() - t0
+    n_full = LLAMA3_8B["n_layers"]
+    paths = {n: os.path.join(work, f"llama3-8b-shape-{n}l-q4_k_m.gguf") for n in (n_full, 8)}
+    for n, path in paths.items():
+        t0 = time.time()
+        r[f"gguf_{n}l"] = g = write_native_gguf(path, merges, n, NATIVE_SEED)
+        g["write_s"] = time.time() - t0
+        gc.collect()
+        log(f"native: {g['bytes'] / 1e9:.3f} GB GGUF of {n} layers ({g['types']}) written in "
+            f"{g['write_s']:.1f} s")
+    log(f"native: {len(merges)} merges in {r['merges_s']:.1f} s; {r['host_cores']} host cores; "
+        f"library {r['library']} ({'built' if built else 'found'} in {r['library_s']:.1f} s)")
+    rng = np.random.default_rng(NATIVE_SEED)
+    prompts = [rng.integers(0, LLAMA3_8B["n_vocab"], 64).tolist() for _ in range(4)]
+
+    full, r["load_native"] = native_load(paths[n_full], dev, numpy_route=False)
+    log_load(r["load_native"], f"{n_full} layers")
+    streams, r["serve"] = native_serve(full, dev, prompts)
+    launches = {k: r["serve"]["launches"].get(k, 0) for k in ("qgemv", "kv_store")}
+    log(f"native: {n_full} layers, 4 x (64 + 16) through step_fused: decode "
+        f"{r['serve']['decode_tok_s']:.1f} tok/s, prefill {r['serve']['prefill_tok_s']:.1f}; "
+        f"launches {r['serve']['launches']}")
+    if (r["load_native"]["converted"] != r[f"gguf_{n_full}l"]["quantized"]
+            or not all(len(s) == 16 for s in streams) or not all(launches.values())):
+        raise AssertionError(f"native: {r['load_native']['converted']} conversions for "
+                             f"{r[f'gguf_{n_full}l']['quantized']} quantized tensors, streams "
+                             f"{streams}, launches {launches}")
+    tok_bpe = full.tokenizer
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    models, streams = {}, {}
+    for route, numpy_route in (("native", False), ("numpy", True)):
+        models[route], r[f"load_{route}_8l"] = native_load(paths[8], dev, numpy_route)
+        log_load(r[f"load_{route}_8l"], "8 layers")
+        streams[route], r[f"serve_{route}_8l"] = native_serve(models[route], dev, prompts)
+    nat, ref = models["native"], models["numpy"]
+    n_q, bad = params_bits_equal(nat.params, ref.params)
+    r["qtensors_compared"], r["fields_differ"] = n_q, bad[:8]
+    cfg = nat.cfg
+    toks = torch.as_tensor(rng.integers(0, cfg.n_vocab, (4, 1)), device=dev)
+    logits = {}
+    for route, m in models.items():
+        kv = init_kv_caches(cfg, 4, 64, torch.float32, dev)
+        with torch.no_grad():
+            logits[route], _ = forward(
+                m.params, cfg, toks, torch.zeros((4, 1), dtype=torch.int32, device=dev), kv,
+                torch.zeros(4, dtype=torch.int32, device=dev), ForwardOptions(dtype=torch.float32))
+    r["decode_logits_equal"] = (logits["native"].shape == (4, 1, cfg.n_vocab)
+                                and bool(torch.isfinite(logits["native"]).all())
+                                and torch.equal(logits["native"], logits["numpy"]))
+    r["decode_logits_max_abs"] = logits["native"].abs().max().item()
+    r["streams_equal"] = streams["native"] == streams["numpy"]
+    log(f"native: 8 layers, {n_q} QTensors, every field native = numpy bit for bit: {not bad}; "
+        f"one f32 decode step's logits equal and finite: {r['decode_logits_equal']} (max |logit| "
+        f"{r['decode_logits_max_abs']:.3f}); 4 x (64 + 16) streams equal: {r['streams_equal']}")
+    n8 = r["gguf_8l"]["quantized"]
+    if (r["load_native_8l"]["converted"] != n8 or r["load_numpy_8l"]["converted"]
+            or bad or n_q != n8 or not r["decode_logits_equal"] or not r["streams_equal"]):
+        raise AssertionError(f"native: the 8-layer loads differ: conversions "
+                             f"{r['load_native_8l']['converted']} / "
+                             f"{r['load_numpy_8l']['converted']} of {n8}, fields {bad[:8]}")
+    del nat, ref, models, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    for path in paths.values():
+        os.remove(path)
+
+    spm_path = os.path.join(work, "spm.gguf")
+    write_spm_vocab(spm_path, merges, text)
+    r["tokenize"] = {"text_mb": len(text.encode("utf-8")) / 1e6}
+    for name, tok in (("bpe", tok_bpe), ("spm", Tokenizer.from_gguf(GGUFModel.open(spm_path)))):
+        x = r["tokenize"][name] = tokenize_both(tok, text)
+        log(f"native: {name} over {r['tokenize']['text_mb']:.3f} MB of the repository's text: "
+            f"{x['ids']} ids, native {x['native_mb_s']:.3f} MB/s, Python {x['python_mb_s']:.4f} "
+            f"MB/s ({x['speedup']:.1f}x), ids equal {x['equal']}")
+        if not x["equal"]:
+            raise AssertionError(f"native: {name} ids differ between the native and Python paths")
+    r["seconds"] = time.time() - t_phase
+    report["native"] = r
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,server,full,long,spec,ring,moe,tools,quant,embed,vision,"
-                            "families,mesh,train",
+                            "families,mesh,train,native",
                     help="comma-separated subset of build,kernels,server,full,long,spec,ring,"
-                         "moe,tools,quant,embed,vision,families,mesh,train")
+                         "moe,tools,quant,embed,vision,families,mesh,train,native")
     # rank 1 of phase ring's full-width ring runs this script with these
     ap.add_argument("--ring-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ring-port", type=int, help=argparse.SUPPRESS)
@@ -5843,6 +6362,13 @@ def main() -> int:
         t0 = time.time()
         phase_train(dev, report)
         log(f"train: {time.time() - t0:.1f} s")
+    # the natively loaded GGUF's served run joins the counts of qgemv and
+    # kv_store
+    if "native" in phases:
+        t0 = time.time()
+        for name, n in phase_native(dev, report).items():
+            launches[name] = (launches.get(name) or 0) + n
+        log(f"native: {time.time() - t0:.1f} s")
     launches["kv_write"] = report.get("server_long_context", {}).get(
         "launches", {}).get("kv_write")
     launches["hbm_probe"] = report["hbm_probe"].get("entry_point_launches")

@@ -32,7 +32,7 @@ from ..ops.layers import (alibi_mask, alibi_slopes, apply_rope, causal_mask, gat
 from ..quant.dequant_np import dequantize_tensor
 from ..quant.device_format import SUPPORTED_TYPES, UQTensor, to_device_format
 from ..quant.qmatmul import MAX_B, qgemv_indexed_plain, qmatmul, qmatmul_indexed
-from ..quant.qtensor import QTensor, dequant_rows, qmatmul_plain
+from ..quant.qtensor import QTensor, dequant_rows, qmatmul_plain, qtensor_from_raw
 from .adapters import lora_delta
 from .config import ModelConfig
 
@@ -74,11 +74,20 @@ def embed(tok_embd, token_ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tens
 # ---------------------------------------------------------------------------
 
 
+def _quant_tensor(raw: np.ndarray, t, shape: tuple[int, int], device) -> QTensor:
+    """GGUF blocks (rows, row_bytes) -> QTensor: the native converter where
+    it takes the type, else the numpy route (the same bits)."""
+    qt = qtensor_from_raw(raw, t, shape, device)
+    if qt is None:
+        qt = QTensor.from_host(to_device_format(raw, t, shape[1]), device)
+    return qt
+
+
 def _to_device_tensor(ti: TensorInfo, dtype, device, dense: bool = False):
     """GGUF tensor -> QTensor (quantized) or dense tensor in `dtype`."""
     t = ti.ggml_type
     if TYPE_TRAITS[t].is_quantized and not dense and t in SUPPORTED_TYPES:
-        return QTensor.from_host(to_device_format(ti.data, t, ti.ne[0]), device)
+        return _quant_tensor(ti.data, t, (ti.n_elements // ti.ne[0], ti.ne[0]), device)
     return torch.from_numpy(dequantize_tensor(ti).astype(np.float32)).to(
         device=device, dtype=dtype)
 
@@ -93,7 +102,7 @@ def _fuse_tensor_rows(tis: Sequence[TensorInfo], device):
         return None
     raw = np.ascontiguousarray(np.concatenate(
         [np.asarray(ti.data).reshape(ti.n_elements // k, -1) for ti in tis]))
-    return QTensor.from_host(to_device_format(raw, t0, k), device)
+    return _quant_tensor(raw, t0, (raw.shape[0], k), device)
 
 
 def _split_tensor_rows(ti: TensorInfo, dtype, device, bounds: Sequence[int]) -> list:
@@ -102,8 +111,8 @@ def _split_tensor_rows(ti: TensorInfo, dtype, device, bounds: Sequence[int]) -> 
     t, k = ti.ggml_type, ti.ne[0]
     if TYPE_TRAITS[t].is_quantized and t in SUPPORTED_TYPES:
         raw = np.asarray(ti.data).reshape(ti.n_elements // k, -1)
-        return [QTensor.from_host(to_device_format(np.ascontiguousarray(raw[r0:r1]), t, k),
-                                  device) for r0, r1 in zip(bounds[:-1], bounds[1:])]
+        return [_quant_tensor(np.ascontiguousarray(raw[r0:r1]), t, (r1 - r0, k), device)
+                for r0, r1 in zip(bounds[:-1], bounds[1:])]
     full = torch.from_numpy(dequantize_tensor(ti).astype(np.float32)).reshape(-1, k)
     return [full[r0:r1].to(device=device, dtype=dtype) for r0, r1 in zip(bounds[:-1], bounds[1:])]
 

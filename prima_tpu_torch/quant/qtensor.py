@@ -1,9 +1,9 @@
 """Quantized weight tensors on a PyTorch device, in natural column order.
 
-Counterpart of prima_tpu/quant/dequant_jax.py. The JAX package permutes
-weight columns (sigma order, `kperm`) so its TPU kernel sees 128-lane
-tiles; the Hopper GEMV reads a row as 16-byte chunks in natural order, so
-the port never permutes.
+Counterpart of prima_tpu/quant/dequant_jax.py (`qtensor_from_raw` is its
+native load path). The JAX package permutes weight columns (sigma order,
+`kperm`) so its TPU kernel sees 128-lane tiles; the Hopper GEMV reads a row
+as 16-byte chunks in natural order, so the port never permutes.
 
 Layouts (same meaning as the host UQTensor, quant/device_format.py):
 
@@ -34,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..native import native_convert
 from .device_format import UQTensor
 
 
@@ -86,6 +87,37 @@ class QTensor:
         return QTensor(sl(self.qs), sl(self.scales), sl(self.mins), self.sub, self.layout,
                        self.q_offset, (r1 - r0, self.shape[1]), d=sl(self.d),
                        dmin=sl(self.dmin), gsub=self.gsub, packed=self.packed)
+
+
+_NATIVE_META = {
+    # ggml_type -> (sub, layout, q_offset, gsub)
+    12: (32, "nib4", 0, 8),    # Q4_K (grouped superblock codes)
+    2: (32, "nib4", -8, 1),    # Q4_0
+    14: (16, "int8", 0, 16),   # Q6_K (grouped superblock codes)
+    8: (32, "int8", 0, 1),     # Q8_0
+}
+
+
+def qtensor_from_raw(raw: np.ndarray, ggml_type, shape: tuple[int, int],
+                     device) -> QTensor | None:
+    """GGUF blocks -> QTensor on `device` through the native (C++)
+    converter, the fields QTensor.from_host(to_device_format(...)) gives,
+    bit for bit. None when the type has no native converter or the library
+    is off (the caller takes the numpy route)."""
+    meta = _NATIVE_META.get(int(ggml_type))
+    if meta is None:
+        return None
+    sub, layout, q_offset, gsub = meta
+    rows, k = shape
+    packed = int(ggml_type) == 12 and (k // sub) % 16 == 0  # pack_scales_np's rule
+    res = native_convert(raw, ggml_type, k, packed)
+    if res is None:
+        return None
+    qs, scales, mins, d, dmin = (None if a is None else torch.from_numpy(a).to(device)
+                                 for a in res)
+    return QTensor(qs=qs, scales=scales, mins=mins, sub=sub, layout=layout,
+                   q_offset=q_offset, shape=(rows, k), d=d, dmin=dmin, gsub=gsub,
+                   packed=packed)
 
 
 def pack_scales_np(scales, mins, d, dmin, gsub: int):

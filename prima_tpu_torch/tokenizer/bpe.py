@@ -165,6 +165,14 @@ class BPE:
 
     def encode(self, text: str) -> list[int]:
         v = self.v
+        from . import native
+
+        nt = native.get(v)
+        if nt is not None:  # C++ hot path (identical ids; test_native.py)
+            b2u = bytes_to_unicode()
+            words = ["".join(b2u[b] for b in w.encode("utf-8")).encode("utf-8")
+                     for w in self._pre_tokenize(text)]
+            return nt.bpe_encode_words(words, v.ignore_merges)
         out: list[int] = []
         for word in self._pre_tokenize(text):
             if v.ignore_merges:

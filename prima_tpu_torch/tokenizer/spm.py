@@ -26,6 +26,12 @@ def spm_encode(v: Vocab, text: str, add_prefix_space: bool = True) -> list[int]:
         text = " " + text
     text = text.replace(" ", _WS)
 
+    from . import native
+
+    nt = native.get(v)
+    if nt is not None:  # C++ hot path (identical ids; test_native.py)
+        return nt.spm_encode(text.encode("utf-8"))
+
     syms = _utf8_chars(text)
     n = len(syms)
     if n == 0:

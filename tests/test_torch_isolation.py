@@ -44,3 +44,21 @@ def test_matcher_is_whole_module_name():
     assert _forbidden("jax.numpy")
     assert not _forbidden("prima_tpu_torch.models.llama")
     assert not _forbidden("jaxtyping_like_name")
+
+
+def _all_sources():
+    """Every source file of the port (Python, C++, CUDA) and chip_smoke.py."""
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files
+                if f.endswith((".py", ".cpp", ".cu", ".cuh", ".h"))]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _all_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_native_library(path):
+    """The port builds its own native library from its own sources: none
+    names the JAX package's native directory or its library."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    assert not [s for s in ("prima_tpu/native", "libprima_native") if s in text]
