@@ -33,6 +33,7 @@ from ..quant.dequant_np import dequantize_tensor
 from ..quant.device_format import SUPPORTED_TYPES, UQTensor, to_device_format
 from ..quant.qmatmul import MAX_B, qgemv_indexed_plain, qmatmul, qmatmul_indexed
 from ..quant.qtensor import QTensor, dequant_rows, qmatmul_plain, qtensor_from_raw
+from ..utils.perf import span
 from .adapters import lora_delta
 from .config import ModelConfig
 
@@ -832,43 +833,65 @@ def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
 def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
                  cache_pos, mask, inv_freq, mscale, opts: ForwardOptions,
                  mask_pos=None, heads: tuple[int, int] | None = None,
-                 taps: dict | None = None, tap_prefix: str = ""):
+                 taps: dict | None = None, tap_prefix: str = "", index: int = 0):
     """One block (prima_tpu/models/llama.py:1111-1193): pre- or swin
     (post-) norms, sequential or parallel attention and FFN, post norms,
     the residual scale, the dense FFN or the experts (arctic: both), and
     last the layer's control vector. taps reach the attention and the
     dense FFN, never moe_ffn: as in the JAX package, no expert, router or
-    shared-expert input is tapped."""
+    shared-expert input is tapped. The attention and the FFN are the spans
+    fwd.attn and fwd.ffn (fwd.moe with experts) of layer `index`."""
     cvec = layer.get("cvec")
-    steer = (lambda v: v) if cvec is None else (lambda v: v + cvec.to(v.dtype))
-    norm = lambda v, key: model_norm(v, layer.get(key), layer.get(key + "_b"), cfg)
-    attn_in = x if cfg.swin_norm else norm(x, "attn_norm")
-    attn_out = attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
-                               inv_freq, mscale, opts, mask_pos, heads, taps, tap_prefix)
+    # the experts take the FFN's place (arctic: beside it); parallel blocks
+    # keep the dense FFN
+    experts = bool(not cfg.parallel_block and cfg.n_expert
+                   and layer.get("ffn_gate_inp") is not None)
+    with span("fwd.attn") as sp:
+        if sp:
+            sp.set(layer=index)
+        attn_in = x if cfg.swin_norm else _norm(layer, cfg, x, "attn_norm")
+        attn_out = attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
+                                   inv_freq, mscale, opts, mask_pos, heads, taps, tap_prefix)
+    with span("fwd.moe" if experts else "fwd.ffn") as sp:
+        if sp:
+            sp.set(layer=index)
+        out = _layer_ffn(layer, cfg, x, attn_in, attn_out, opts, taps, tap_prefix, experts)
+        return out if cvec is None else out + cvec.to(out.dtype)
+
+
+def _norm(layer: dict, cfg: ModelConfig, v: torch.Tensor, key: str) -> torch.Tensor:
+    return model_norm(v, layer.get(key), layer.get(key + "_b"), cfg)
+
+
+def _layer_ffn(layer: dict, cfg: ModelConfig, x, attn_in, attn_out, opts, taps, tap_prefix,
+               experts: bool):
+    """decode_layer after the attention, with its experts or its dense
+    FFN: the layer's output before its control vector."""
+    norm = lambda v, key: _norm(layer, cfg, v, key)
     dense_ffn = lambda v: ffn_block(layer, v, opts, cfg.act, cfg.ffn_gated, cfg.rms_eps,
                                     taps, tap_prefix)
     if cfg.parallel_block:
         # command-r / phi2: the FFN shares the attention's normed input;
         # gptneox-style blocks norm the layer input with their own ffn_norm
         ffn_in = attn_in if layer.get("ffn_norm") is None else norm(x, "ffn_norm")
-        return steer(x + attn_out + dense_ffn(ffn_in))
+        return x + attn_out + dense_ffn(ffn_in)
     if cfg.post_norms and layer.get("attn_post_norm") is not None:
         attn_out = rms_norm(attn_out, layer["attn_post_norm"], cfg.rms_eps)
     if cfg.swin_norm:  # chameleon: the same attn_norm weights, after the branch
         attn_out = norm(attn_out, "attn_norm")
     if cfg.residual_scale != 1.0:  # minicpm / granite
         attn_out = attn_out * float(np.float32(cfg.residual_scale))
-    if cfg.moe_parallel_dense and layer.get("ffn_gate_inp") is not None:
+    if cfg.moe_parallel_dense and experts:
         # arctic: the dense FFN off the post-attention residual, the experts
         # off the layer input (ffn_norm_exps), summed
         ffn_inp = x + attn_out
         dense = ffn_block(layer, rms_norm(ffn_inp, layer["ffn_norm"], cfg.rms_eps), opts,
                           cfg.act, True, cfg.rms_eps, taps, tap_prefix)
         moe = moe_ffn(layer, cfg, rms_norm(x, layer["ffn_norm_exps"], cfg.rms_eps), opts)
-        return steer(moe + dense + ffn_inp)
+        return moe + dense + ffn_inp
     x = x + attn_out
     ffn_in = x if cfg.swin_norm else norm(x, "ffn_norm")
-    if cfg.n_expert and layer.get("ffn_gate_inp") is not None:
+    if experts:
         ffn_out = moe_ffn(layer, cfg, ffn_in, opts)
     else:
         ffn_out = dense_ffn(ffn_in)
@@ -878,13 +901,26 @@ def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
         ffn_out = norm(ffn_out, "ffn_norm")
     if cfg.residual_scale != 1.0:
         ffn_out = ffn_out * float(np.float32(cfg.residual_scale))
-    return steer(x + ffn_out)
+    return x + ffn_out
 
 
 def layer_heads(cfg: ModelConfig, i: int) -> tuple[int, int]:
     """Layer i's (query heads, KV heads): per layer for openelm."""
     return ((cfg.n_heads_arr[i] if cfg.n_heads_arr else cfg.n_heads),
             (cfg.n_kv_heads_arr[i] if cfg.n_kv_heads_arr else cfg.n_kv_heads))
+
+
+def _embed_in(params: dict, cfg: ModelConfig, tokens, positions, dtype) -> torch.Tensor:
+    """The token embedding and what follows it up to the first layer."""
+    x = embed(params["tok_embd"], tokens, dtype)
+    if cfg.embd_scale != 1.0:  # gemma: sqrt(n_embd)
+        x = x * float(np.float32(cfg.embd_scale))
+    if params.get("pos_embd") is not None:  # gpt2 / starcoder: learned positions
+        x = x + params["pos_embd"][positions.long()].to(x.dtype)
+    if params.get("tok_embd_norm") is not None:  # bloom
+        x = layer_norm(x, params["tok_embd_norm"], params.get("tok_embd_norm_b"),
+                       cfg.rms_eps)
+    return x
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
@@ -930,14 +966,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
     if lo == 0 and inputs_embeds is not None:
         x = inputs_embeds.to(opts.dtype)
     elif lo == 0:
-        x = embed(params["tok_embd"], tokens, opts.dtype)
-        if cfg.embd_scale != 1.0:  # gemma: sqrt(n_embd)
-            x = x * float(np.float32(cfg.embd_scale))
-        if params.get("pos_embd") is not None:  # gpt2 / starcoder: learned positions
-            x = x + params["pos_embd"][positions.long()].to(x.dtype)
-        if params.get("tok_embd_norm") is not None:  # bloom
-            x = layer_norm(x, params["tok_embd_norm"], params.get("tok_embd_norm_b"),
-                           cfg.rms_eps)
+        with span("fwd.embed"):
+            x = _embed_in(params, cfg, tokens, positions, opts.dtype)
     else:
         if hidden_in is None:
             raise ValueError(f"a window starting at layer {lo} needs hidden_in")
@@ -963,10 +993,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
         m = mask_swa if mask_swa is not None and i % 2 == 0 else mask
         heads = layer_heads(cfg, i) if cfg.n_heads_arr else None
         x = decode_layer(layer, cfg, x, positions, kv_caches[i], cache_pos, m, inv_freq,
-                         mscale, opts, mask_positions, heads, taps, f"blk.{i}.")
+                         mscale, opts, mask_positions, heads, taps, f"blk.{i}.", index=i)
     if return_hidden or hi < cfg.n_layers:
         return x, kv_caches
-    return lm_head(params, cfg, x, opts, taps), kv_caches
+    with span("fwd.head"):
+        return lm_head(params, cfg, x, opts, taps), kv_caches
 
 
 def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,

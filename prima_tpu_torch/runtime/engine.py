@@ -32,6 +32,7 @@ from .. import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import ForwardOptions, forward, init_kv_caches, model_norm
 from ..sampling import Sampler, SamplerParams, softmax
+from ..utils.perf import span
 from .generate import (MAX_TOPK, FusedGenerator, SlotSampleParams,
                        fused_eligible, sample_one, stable_topk)
 from .kv import KVCache
@@ -66,6 +67,19 @@ def apply_self_extend(slot, used: int, max_seq: int, ga_n: int, ga_w: int,
         n_past -= bd
         slot.ga_i += ga_w // ga_n
     slot.pos_delta = n_past - used
+
+
+def decode_extent(slots, before, after) -> dict:
+    """The steps and cells of one decode call (the engine.decode span's
+    attributes): slot s decoded after - before tokens, the j-th at cell
+    before + j, which sees before + j + 1 cells."""
+    steps = cells = 0
+    for s in slots:
+        p0 = int(before[s.id])
+        k = int(after[s.id]) - p0
+        steps = max(steps, k)
+        cells += k * p0 + k * (k + 1) // 2
+    return {"steps": steps, "cells": cells}
 
 
 def record_positions(slot, pos0: int, n: int, max_seq: int) -> None:
@@ -288,8 +302,11 @@ class Engine:
         target = len(slot.prompt) - 1
         chunk = slot.prompt[slot.n_prompt_done: min(slot.n_prompt_done + self.n_batch, target)]
         pos0 = self.kv.used(slot.id)
-        self._prefill(np.asarray(chunk, dtype=np.int64), pos0, pos0 + slot.pos_delta,
-                      slot.id)
+        with span("engine.prefill") as sp:
+            if sp:
+                sp.set(slot=slot.id, rows=len(chunk), pos0=pos0)
+            self._prefill(np.asarray(chunk, dtype=np.int64), pos0, pos0 + slot.pos_delta,
+                          slot.id)
         self._record_positions(slot, pos0, len(chunk))
         self.kv.cache_pos[slot.id] += len(chunk)
         slot.n_prompt_done += len(chunk)
@@ -301,7 +318,8 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def step(self) -> list[StepEvent]:
-        """One scheduler tick: advance prefills, then one batched decode."""
+        """One scheduler tick: advance prefills, then one batched decode
+        (the engine.decode span)."""
         events: list[StepEvent] = []
         t0 = time.perf_counter()
         did_prefill = False
@@ -318,6 +336,17 @@ class Engine:
         active = [s for s in self.slots if s.state == SlotState.DECODE]
         if not active:
             return events
+        with span("engine.decode") as sp:
+            events += self._decode_step(active)
+            if sp:  # one token a slot, at its last cell
+                sp.set(rows=len(active),
+                       **decode_extent(active, self.kv.cache_pos - 1, self.kv.cache_pos))
+        return events
+
+    def _decode_step(self, active: list) -> list[StepEvent]:
+        """step()'s batched decode of the active slots: one decode.issue,
+        its decode.readback, then the host's decode.sample."""
+        events: list[StepEvent] = []
         if self.ctx_shift:  # shift instead of stopping when a slot fills
             for slot in active:
                 used = self.kv.used(slot.id)
@@ -335,68 +364,74 @@ class Engine:
         for slot in active:
             tokens[slot.id, 0] = slot.generated[-1] if slot.generated else slot.prompt[-1]
             rope_delta[slot.id] = slot.pos_delta
-        cache_pos = self._tensor(self.kv.cache_pos)  # inactive rows park in place
         # one decode program whatever the transfer mode, so the shortlist
         # and full-row paths see the same logits
         use_sl = all(self._slot_shortlist_ok(s) for s in active)
         with torch.no_grad():
-            logits, self.kv.caches = self._decode_raw(
-                self.params, self.kv.caches, self._tensor(tokens, torch.int64),
-                cache_pos, self._tensor(self.kv.cache_pos + rope_delta))
-            lf = logits.float()
-            if use_sl:
-                vals, idx = stable_topk(lf, min(MAX_TOPK, lf.shape[-1]))
-                lse = torch.logsumexp(lf, dim=-1)
-                sl_vals, sl_idx, sl_lse = (vals.cpu().numpy(), idx.cpu().numpy(),
-                                           lse.cpu().numpy())
-                logits_all = None
-            else:
-                logits_all = lf.cpu().numpy()
+            with span("decode.issue") as sp:
+                if sp:
+                    sp.set(step=0)
+                cache_pos = self._tensor(self.kv.cache_pos)  # inactive rows park in place
+                logits, self.kv.caches = self._decode_raw(
+                    self.params, self.kv.caches, self._tensor(tokens, torch.int64),
+                    cache_pos, self._tensor(self.kv.cache_pos + rope_delta))
+                lf = logits.float()
+                if use_sl:
+                    vals, idx = stable_topk(lf, min(MAX_TOPK, lf.shape[-1]))
+                    lse = torch.logsumexp(lf, dim=-1)
+            with span("decode.readback"):
+                if use_sl:
+                    sl_vals, sl_idx, sl_lse = (vals.cpu().numpy(), idx.cpu().numpy(),
+                                               lse.cpu().numpy())
+                    logits_all = None
+                else:
+                    logits_all = lf.cpu().numpy()
         self.n_decode_calls += 1
         self.perf["t_decode_s"] += time.perf_counter() - t0
         self.perf["n_decode"] += len(active)
         for slot in active:
             self.kv.cache_pos[slot.id] += 1
 
-        V = self.cfg.n_vocab
-        for slot in active:
-            row = logits_all[slot.id] if logits_all is not None else None
-            sl = None if row is not None else (sl_vals[slot.id], sl_idx[slot.id])
-            if slot.sampler.p.temp > 0 and fused_eligible(slot.sampler):
-                # same draw schedule as step_fused: (seed, token index)
-                tok = sample_one(
-                    row, SlotSampleParams.from_sampler(slot.sampler),
-                    list(slot.sampler.prev), len(slot.generated),
-                    logit_bias=slot.sampler.p.logit_bias,
-                    shortlist=None if sl is None else (sl[0], sl[1], V),
-                    device=self.device)
-            else:
-                if row is None:  # virtual full row from the shortlist
-                    row = np.full(V, -1e30, np.float32)
-                    row[sl[1]] = sl[0]
-                tok = slot.sampler.sample(row)
-            slot.sampler.accept(tok)
-            slot.generated.append(tok)
-            lp = None
-            if slot.n_probs > 0:
-                if sl is not None:
-                    lpv = sl[0] - sl_lse[slot.id]
-                    pairs = {int(t): float(lpv[i]) for i, t in enumerate(sl[1])}
-                    ids = [int(t) for t in sl[1][: slot.n_probs]]
-                    if tok in pairs:
-                        ids.append(tok)
-                    lp = [(t, pairs[t]) for t in dict.fromkeys(ids)]
+        with span("decode.sample"):
+            V = self.cfg.n_vocab
+            for slot in active:
+                row = logits_all[slot.id] if logits_all is not None else None
+                sl = None if row is not None else (sl_vals[slot.id], sl_idx[slot.id])
+                if slot.sampler.p.temp > 0 and fused_eligible(slot.sampler):
+                    # same draw schedule as step_fused: (seed, token index)
+                    tok = sample_one(
+                        row, SlotSampleParams.from_sampler(slot.sampler),
+                        list(slot.sampler.prev), len(slot.generated),
+                        logit_bias=slot.sampler.p.logit_bias,
+                        shortlist=None if sl is None else (sl[0], sl[1], V),
+                        device=self.device)
                 else:
-                    probs = np.log(np.maximum(softmax(row), 1e-30))
-                    top = np.argsort(-row)[: slot.n_probs]
-                    ids = list(dict.fromkeys([int(t) for t in top] + [tok]))
-                    lp = [(int(t), float(probs[t])) for t in ids]
-            done, reason = self._check_stop(slot, tok)
-            if done:
-                slot.state = SlotState.IDLE
-                slot.stop_reason = reason
-            events.append(StepEvent(slot.id, slot.request_id, tok, done, reason,
-                                    logprobs=lp))
+                    if row is None:  # virtual full row from the shortlist
+                        row = np.full(V, -1e30, np.float32)
+                        row[sl[1]] = sl[0]
+                    tok = slot.sampler.sample(row)
+                slot.sampler.accept(tok)
+                slot.generated.append(tok)
+                lp = None
+                if slot.n_probs > 0:
+                    if sl is not None:
+                        lpv = sl[0] - sl_lse[slot.id]
+                        pairs = {int(t): float(lpv[i]) for i, t in enumerate(sl[1])}
+                        ids = [int(t) for t in sl[1][: slot.n_probs]]
+                        if tok in pairs:
+                            ids.append(tok)
+                        lp = [(t, pairs[t]) for t in dict.fromkeys(ids)]
+                    else:
+                        probs = np.log(np.maximum(softmax(row), 1e-30))
+                        top = np.argsort(-row)[: slot.n_probs]
+                        ids = list(dict.fromkeys([int(t) for t in top] + [tok]))
+                        lp = [(int(t), float(probs[t])) for t in ids]
+                done, reason = self._check_stop(slot, tok)
+                if done:
+                    slot.state = SlotState.IDLE
+                    slot.stop_reason = reason
+                events.append(StepEvent(slot.id, slot.request_id, tok, done, reason,
+                                        logprobs=lp))
         return events
 
     def _slot_shortlist_ok(self, s: Slot) -> bool:
@@ -449,6 +484,15 @@ class Engine:
             return self.step()
         if not active:
             return []
+        with span("engine.decode") as sp:
+            before = self.kv.cache_pos.copy() if sp else None
+            events = self._fused_step(active, max_chunk)
+            if sp:
+                sp.set(rows=len(active), **decode_extent(active, before, self.kv.cache_pos))
+        return events
+
+    def _fused_step(self, active: list, max_chunk: int | None) -> list[StepEvent]:
+        """step_fused's chunk over the active slots."""
         B = self.n_slots
         chunk = max_chunk or self._fused_gen.chunk
         # Self-Extend: apply pending compression on the host, then cap the

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..sampling import Sampler
+from ..utils.perf import span
 
 MAX_TOPK = 256  # device top-k bound
 NEG_INF = -1e30
@@ -270,7 +271,9 @@ class FusedGenerator:
         """Run up to `chunk` decode + sample steps on the device. Returns
         (caches, tokens (B, chunk) with -1 on parked steps, new cache_pos
         (B,), lp) where lp is None or (top vals, top ids, logsumexp,
-        sampled-token logit) as numpy arrays for logprobs."""
+        sampled-token logit) as numpy arrays for logprobs. Each step is a
+        decode.issue span holding its decode.sample, the one read-back a
+        decode.readback span."""
         dev = self.device
         b = token.shape[0]
         chunk = chunk or self.chunk
@@ -304,35 +307,41 @@ class FusedGenerator:
         # the loop needs no host sync per step
         steps = min(chunk, int(max(n_left[live0], default=0)))
         for i in range(steps):
-            logits, caches = self.fwd(params, caches, tok_t, pos_t, pos_t + delta_t)
-            counts = gen_count + i  # each live row's absolute draw index
-            tok = device_sample(
-                logits, recent_t, sp, top_k=top_k, has_pen=has_pen,
-                has_dist=has_dist, has_free=has_free, bias=bias,
-                noise_k=gumbel_noise(slot_params, counts, top_k, dev) if top_k else None,
-                noise_v=(gumbel_noise(slot_params, counts, logits.shape[-1], dev)
-                         if has_free else None))
+            with span("decode.issue") as issue:
+                if issue:
+                    issue.set(step=i)
+                logits, caches = self.fwd(params, caches, tok_t, pos_t, pos_t + delta_t)
+                counts = gen_count + i  # each live row's absolute draw index
+                with span("decode.sample"):
+                    tok = device_sample(
+                        logits, recent_t, sp, top_k=top_k, has_pen=has_pen,
+                        has_dist=has_dist, has_free=has_free, bias=bias,
+                        noise_k=(gumbel_noise(slot_params, counts, top_k, dev)
+                                 if top_k else None),
+                        noise_v=(gumbel_noise(slot_params, counts, logits.shape[-1], dev)
+                                 if has_free else None))
+                if probs_k:
+                    lf = logits.float()
+                    pv, pi = torch.topk(lf, probs_k, dim=-1)
+                    lp[0][:, i], lp[1][:, i] = pv, pi
+                    lp[2][:, i] = torch.logsumexp(lf, dim=-1)
+                    lp[3][:, i] = lf.gather(1, tok[:, None])[:, 0]
+                live = ~done
+                tok_t = torch.where(live[:, None], tok[:, None], tok_t)
+                out[:, i] = torch.where(live, tok, -1)
+                if has_pen:
+                    ln = sp["eff_last_n"]
+                    wix = (recent_n_t % ln).long()
+                    new_rec = recent_t.scatter(1, wix[:, None], tok[:, None].to(torch.int32))
+                    recent_t = torch.where(live[:, None], new_rec, recent_t)
+                    recent_n_t = recent_n_t + live.int()
+                pos_t = pos_t + live.int()
+                left_t = left_t - live.int()
+                is_eog = (tok[:, None] == eog[None, :]).any(dim=-1)
+                done = done | (left_t <= 0) | (live & is_eog)
+        with span("decode.readback"):
+            toks = out.cpu().numpy()
+            new_pos = pos_t.cpu().numpy()
             if probs_k:
-                lf = logits.float()
-                pv, pi = torch.topk(lf, probs_k, dim=-1)
-                lp[0][:, i], lp[1][:, i] = pv, pi
-                lp[2][:, i] = torch.logsumexp(lf, dim=-1)
-                lp[3][:, i] = lf.gather(1, tok[:, None])[:, 0]
-            live = ~done
-            tok_t = torch.where(live[:, None], tok[:, None], tok_t)
-            out[:, i] = torch.where(live, tok, -1)
-            if has_pen:
-                ln = sp["eff_last_n"]
-                wix = (recent_n_t % ln).long()
-                new_rec = recent_t.scatter(1, wix[:, None], tok[:, None].to(torch.int32))
-                recent_t = torch.where(live[:, None], new_rec, recent_t)
-                recent_n_t = recent_n_t + live.int()
-            pos_t = pos_t + live.int()
-            left_t = left_t - live.int()
-            is_eog = (tok[:, None] == eog[None, :]).any(dim=-1)
-            done = done | (left_t <= 0) | (live & is_eog)
-        toks = out.cpu().numpy()
-        new_pos = pos_t.cpu().numpy()
-        if probs_k:
-            lp = tuple(a.cpu().numpy() for a in lp)
+                lp = tuple(a.cpu().numpy() for a in lp)
         return caches, toks, new_pos, lp

@@ -249,6 +249,14 @@ def make_handler(ctx: ServerContext):
                     f"llamacpp:n_busy_slots_per_decode {m['n_busy_slots']}",
                     "# TYPE llamacpp:requests_total counter",
                     f"llamacpp:requests_total {m['n_requests']}",
+                    "# TYPE llamacpp:prompt_seconds_total counter",
+                    f"llamacpp:prompt_seconds_total {ctx.engine.perf['t_prompt_s']}",
+                    "# TYPE llamacpp:tokens_predicted_seconds_total counter",
+                    f"llamacpp:tokens_predicted_seconds_total {ctx.engine.perf['t_decode_s']}",
+                    "# TYPE llamacpp:requests_processing gauge",
+                    f"llamacpp:requests_processing {len(ctx.worker.active)}",
+                    "# TYPE llamacpp:requests_deferred gauge",
+                    f"llamacpp:requests_deferred {ctx.worker.pending.qsize()}",
                     "# TYPE prima:kernel_launches_total counter",
                 ] + [f'prima:kernel_launches_total{{kernel="{k}"}} {n}'
                      for k, n in self._launches()[0].items()]

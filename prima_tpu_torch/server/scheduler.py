@@ -18,6 +18,7 @@ from typing import Any
 
 from ..runtime.engine import Engine, SlotState
 from ..sampling import Sampler
+from ..utils.perf import span
 
 
 @dataclass
@@ -280,7 +281,8 @@ class EngineWorker:
                     self._wake.wait(timeout=0.2)
                     self._wake.clear()
                 continue
-            self._admit()
+            with span("worker.admit"):
+                self._admit()
             with self._lock:
                 busy = len(self.active)
             self.metrics["n_busy_slots"] = busy
@@ -294,26 +296,27 @@ class EngineWorker:
             events = (self.engine.step_fused(max_chunk=8)
                       if hasattr(self.engine, "step_fused")
                       else self.engine.step())
-            for ev in events:
-                with self._lock:
-                    req = self.active.get(ev.request_id)
-                if req is None:
-                    continue
-                if ev.token is not None:
-                    self.metrics["tokens_predicted_total"] += 1
-                    req.tokens_out.append(ev.token)
-                    if ev.logprobs is not None:
-                        req.logprobs_out.append(ev.logprobs)
-                    self._emit(req, ev.token)
-                with self._lock:
-                    still = ev.request_id in self.active
-                if ev.done and still:
-                    # flush any held-back text
-                    tail = self._texts.get(ev.request_id, "")[len(req.text):]
-                    if tail:
-                        req.text += tail
-                        req.events.put(StreamEvent(tail, False))
-                    self._finish(req, ev.reason or "done")
+            with span("worker.emit"):
+                for ev in events:
+                    with self._lock:
+                        req = self.active.get(ev.request_id)
+                    if req is None:
+                        continue
+                    if ev.token is not None:
+                        self.metrics["tokens_predicted_total"] += 1
+                        req.tokens_out.append(ev.token)
+                        if ev.logprobs is not None:
+                            req.logprobs_out.append(ev.logprobs)
+                        self._emit(req, ev.token)
+                    with self._lock:
+                        still = ev.request_id in self.active
+                    if ev.done and still:
+                        # flush any held-back text
+                        tail = self._texts.get(ev.request_id, "")[len(req.text):]
+                        if tail:
+                            req.text += tail
+                            req.events.put(StreamEvent(tail, False))
+                        self._finish(req, ev.reason or "done")
 
     # -- synchronous helper ------------------------------------------------------
 

@@ -127,6 +127,15 @@ def test_port_endpoints(servers):
     # grammar requests are served: the one sentence of the grammar, then EOG
     st, data = _req(port, "POST", "/completion", dict(GREEDY, prompt="x", grammar="root ::= \"a\""))
     assert st == 200 and json.loads(data)["choices"][0]["text"] == "a"
+    # llama.cpp's timing and queue series, from Engine.perf and the worker,
+    # after a request that prefilled and decoded
+    st, data = _req(port, "GET", "/metrics")
+    values = dict(ln.rsplit(" ", 1) for ln in data.decode().splitlines()
+                  if ln.startswith("llamacpp:"))
+    assert float(values["llamacpp:prompt_seconds_total"]) > 0.0
+    assert float(values["llamacpp:tokens_predicted_seconds_total"]) > 0.0
+    assert values["llamacpp:requests_processing"] == "0"
+    assert values["llamacpp:requests_deferred"] == "0"
 
 
 def test_slot_file_crosses_servers(servers, tmp_path):
