@@ -16,6 +16,7 @@ after its layer.
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Sequence
 
@@ -42,6 +43,28 @@ from .config import ModelConfig
 # ---------------------------------------------------------------------------
 
 
+# The capture of a decode graph in progress (runtime/decode_graph.py), or
+# None: on its thread, `linear` over a quantized weight and the experts'
+# call become the boundaries between the graph's segments, and the
+# forward's spans (`_span`) its cut points.
+_capture = None
+
+
+def _capturing():
+    """The decode graph's capture in progress on this thread, or None."""
+    c = _capture
+    if c is not None and c.thread == threading.get_ident():
+        return c
+    return None
+
+
+def _span(name: str):
+    """span(name), or while a decode graph is captured on this thread the
+    capture's stand-in for it."""
+    c = _capturing()
+    return span(name) if c is None else c.span(name)
+
+
 def linear(x: torch.Tensor, w, impl: str = "kernel") -> torch.Tensor:
     """x (..., K) @ W(rows, K)^T -> (..., rows). impl "kernel" streams
     quantized weights through the GEMV kernel; "plain" dequantizes and
@@ -51,7 +74,8 @@ def linear(x: torch.Tensor, w, impl: str = "kernel") -> torch.Tensor:
             return qmatmul_plain(x, w)
         if impl != "kernel":
             raise ValueError(f"unknown matmul_impl {impl!r}")
-        return qmatmul(x, w)
+        c = _capturing()
+        return qmatmul(x, w) if c is None else c.gemv(x, w)
     return torch.matmul(x.float(), w.float().t()).to(x.dtype)
 
 
@@ -830,6 +854,15 @@ def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     return _tp_sum(out, opts)
 
 
+def _experts(layer: dict, cfg: ModelConfig, x: torch.Tensor,
+             opts: ForwardOptions) -> torch.Tensor:
+    """moe_ffn, looked up on this module at each call (a wrapper set there
+    sees every call); while a decode graph is captured on this thread, a
+    boundary that calls it eagerly on every replay."""
+    c = _capturing()
+    return moe_ffn(layer, cfg, x, opts) if c is None else c.experts(layer, cfg, x, opts)
+
+
 def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
                  cache_pos, mask, inv_freq, mscale, opts: ForwardOptions,
                  mask_pos=None, heads: tuple[int, int] | None = None,
@@ -846,13 +879,13 @@ def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
     # keep the dense FFN
     experts = bool(not cfg.parallel_block and cfg.n_expert
                    and layer.get("ffn_gate_inp") is not None)
-    with span("fwd.attn") as sp:
+    with _span("fwd.attn") as sp:
         if sp:
             sp.set(layer=index)
         attn_in = x if cfg.swin_norm else _norm(layer, cfg, x, "attn_norm")
         attn_out = attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
                                    inv_freq, mscale, opts, mask_pos, heads, taps, tap_prefix)
-    with span("fwd.moe" if experts else "fwd.ffn") as sp:
+    with _span("fwd.moe" if experts else "fwd.ffn") as sp:
         if sp:
             sp.set(layer=index)
         out = _layer_ffn(layer, cfg, x, attn_in, attn_out, opts, taps, tap_prefix, experts)
@@ -887,12 +920,12 @@ def _layer_ffn(layer: dict, cfg: ModelConfig, x, attn_in, attn_out, opts, taps, 
         ffn_inp = x + attn_out
         dense = ffn_block(layer, rms_norm(ffn_inp, layer["ffn_norm"], cfg.rms_eps), opts,
                           cfg.act, True, cfg.rms_eps, taps, tap_prefix)
-        moe = moe_ffn(layer, cfg, rms_norm(x, layer["ffn_norm_exps"], cfg.rms_eps), opts)
+        moe = _experts(layer, cfg, rms_norm(x, layer["ffn_norm_exps"], cfg.rms_eps), opts)
         return moe + dense + ffn_inp
     x = x + attn_out
     ffn_in = x if cfg.swin_norm else norm(x, "ffn_norm")
     if experts:
-        ffn_out = moe_ffn(layer, cfg, ffn_in, opts)
+        ffn_out = _experts(layer, cfg, ffn_in, opts)
     else:
         ffn_out = dense_ffn(ffn_in)
     if cfg.post_norms and layer.get("ffn_post_norm") is not None:
@@ -966,7 +999,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
     if lo == 0 and inputs_embeds is not None:
         x = inputs_embeds.to(opts.dtype)
     elif lo == 0:
-        with span("fwd.embed"):
+        with _span("fwd.embed"):
             x = _embed_in(params, cfg, tokens, positions, opts.dtype)
     else:
         if hidden_in is None:
@@ -996,7 +1029,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
                          mscale, opts, mask_positions, heads, taps, f"blk.{i}.", index=i)
     if return_hidden or hi < cfg.n_layers:
         return x, kv_caches
-    with span("fwd.head"):
+    with _span("fwd.head"):
         return lm_head(params, cfg, x, opts, taps), kv_caches
 
 

@@ -48,8 +48,26 @@ def _yarn_corr_dim(n_dims: int, n_ctx_orig: int, n_rot: float, base: float) -> f
     return n_dims * math.log(n_ctx_orig / (n_rot * 2 * math.pi)) / (2 * math.log(base))
 
 
+_rope_cache: dict = {}  # (RoPE parameters, device) -> (inv_freq, mscale)
+
+
 def rope_freqs(cfg: ModelConfig, device=None) -> tuple[torch.Tensor, float]:
-    """Per-pair inverse frequencies (rope_dim // 2,) f32 and the YaRN mscale."""
+    """Per-pair inverse frequencies (rope_dim // 2,) f32 and the YaRN mscale.
+    Built on `device` once per set of RoPE parameters and device, and the
+    same tensor on every later call (callers must not write into it): a
+    forward makes no device tensor and no host-to-device copy for it, so a
+    decode step can be captured as a CUDA graph."""
+    s = cfg.rope_scaling
+    key = (cfg.rope_dim, cfg.rope_base, cfg.n_ctx_train, s.kind, s.factor, s.orig_ctx,
+           s.ext_factor, s.attn_factor, s.beta_fast, s.beta_slow,
+           torch.device("cpu") if device is None else torch.device(device))
+    got = _rope_cache.get(key)
+    if got is None:
+        got = _rope_cache[key] = _rope_freqs(cfg, device)
+    return got
+
+
+def _rope_freqs(cfg: ModelConfig, device) -> tuple[torch.Tensor, float]:
     half = cfg.rope_dim // 2
     base = cfg.rope_base
     exps = torch.arange(0, half, dtype=torch.float32, device=device) * 2.0 / cfg.rope_dim

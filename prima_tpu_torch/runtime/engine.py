@@ -33,6 +33,7 @@ from ..models.config import ModelConfig
 from ..models.llama import ForwardOptions, forward, init_kv_caches, model_norm
 from ..sampling import Sampler, SamplerParams, softmax
 from ..utils.perf import span
+from .decode_graph import DecodeGraph
 from .generate import (MAX_TOPK, FusedGenerator, SlotSampleParams,
                        fused_eligible, sample_one, stable_topk)
 from .kv import KVCache
@@ -155,6 +156,7 @@ class Engine:
         self.grp_attn_w = grp_attn_w
         self.perf = {"n_prompt": 0, "n_decode": 0, "t_prompt_s": 0.0, "t_decode_s": 0.0}
         self._fused_gen = FusedGenerator(self._decode_raw, self.device)
+        self._decode_graph = DecodeGraph(n_slots)
 
     # -- device programs ---------------------------------------------------------
 
@@ -199,10 +201,13 @@ class Engine:
     @torch.no_grad()
     def _decode_raw(self, params, caches, tokens, cache_pos, rope_pos):
         """tokens (B, 1), cache_pos / rope_pos (B,) on the device ->
-        (logits (B, V), caches). Causal visibility follows the write index."""
-        logits, caches = forward(params, self.cfg, tokens, rope_pos[:, None], caches,
-                                 cache_pos, self.opts,
-                                 mask_positions=cache_pos[:, None])
+        (logits (B, V), caches). Causal visibility follows the write index.
+        The forward is replayed as CUDA graphs between its GEMV calls where
+        that applies (runtime/decode_graph.py); the logits of such a step
+        are overwritten by the next."""
+        logits, caches = self._decode_graph(params, self.cfg, tokens, rope_pos[:, None],
+                                            caches, cache_pos, self.opts,
+                                            mask_positions=cache_pos[:, None])
         return logits[:, -1], caches
 
     # -- request management ------------------------------------------------------

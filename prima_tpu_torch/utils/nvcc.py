@@ -26,11 +26,16 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 class LaunchCounter:
     """Counts a kernel wrapper's launches (shows that a run went through
-    the kernel). The wrapper adds one where it launches, nowhere else."""
+    the kernel). The wrapper adds one where it launches, nowhere else; a
+    CUDA graph that holds the launch adds it on each replay
+    (runtime/decode_graph.py). `every` lists each counter made."""
+
+    every: list["LaunchCounter"] = []
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        LaunchCounter.every.append(self)
 
 
 def check(rc: int, what: str) -> None:
