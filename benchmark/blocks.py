@@ -17,7 +17,11 @@ Layouts (ggml-common.h, little-endian):
         sub-blocks of 32), qs[128] (4-bit)
   Q5_K  176 B / 256: d, dmin, scales[12], qh[32] (5th bits), qs[128]
   Q6_K  210 B / 256: ql[128], qh[64], scales[16] (int8), d f16
+  Q5_0   22 B / 32:  d f16, qh[4] (5th bits), qs[16] (4-bit: element j in
+        the low nibble of qs[j], j + 16 in its high nibble)
   Q8_0   34 B / 32:  d f16, qs[32] (int8)
+(Q5_0 is what llama-quantize gives a Q4_K tensor whose rows are not whole
+blocks of 256.)
 """
 
 from __future__ import annotations
@@ -29,10 +33,10 @@ import torch
 WEIGHT_RMS = 0.02
 
 # ggml type ids (ggml.h) and (block elements, block bytes)
-F32, F16, Q8_0, Q4_K, Q5_K, Q6_K = 0, 1, 8, 12, 13, 14
-TYPE_IDS = {"F32": F32, "F16": F16, "Q8_0": Q8_0, "Q4_K": Q4_K, "Q5_K": Q5_K,
-            "Q6_K": Q6_K}
-BLOCK = {F32: (1, 4), F16: (1, 2), Q8_0: (32, 34), Q4_K: (256, 144),
+F32, F16, Q5_0, Q8_0, Q4_K, Q5_K, Q6_K = 0, 1, 6, 8, 12, 13, 14
+TYPE_IDS = {"F32": F32, "F16": F16, "Q5_0": Q5_0, "Q8_0": Q8_0, "Q4_K": Q4_K,
+            "Q5_K": Q5_K, "Q6_K": Q6_K}
+BLOCK = {F32: (1, 4), F16: (1, 2), Q5_0: (32, 22), Q8_0: (32, 34), Q4_K: (256, 144),
          Q5_K: (256, 176), Q6_K: (256, 210)}
 
 # 6-bit sub-block scale codes and the quant offset that centres them:
@@ -119,6 +123,11 @@ def make_blocks(seed: int, name: str, ggml_type: int, shape: tuple, device) -> t
         raw[:, 208:210] = _f16_bytes(d)
     elif ggml_type == Q8_0:
         d = WEIGHT_RMS / 73.9 * _uniform(g, nb, 0.75, 1.25, device)
+        raw[:, 0:2] = _f16_bytes(d)
+    elif ggml_type == Q5_0:
+        # q - 16 over -16..15 has mean -1/2: scales of either sign centre it
+        sign = _ints(g, nb, 0, 1, device) * 2 - 1
+        d = sign * WEIGHT_RMS / _code_rms(-16, 15) * _uniform(g, nb, 0.75, 1.25, device)
         raw[:, 0:2] = _f16_bytes(d)
     else:
         raise ValueError(f"no block maker for ggml type {ggml_type}")

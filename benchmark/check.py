@@ -11,9 +11,10 @@ greedy requests among the sampled ones for this.
 
 For a mixture of experts the reference follows the program's choice of
 experts (routes.py), and two more numbers check the router by itself: the
-share of rows and layers at which the program chose other experts than
-the reference's own router would have, over all layers and over the
-configuration's first `route_lead_layers`. Rounding makes the hidden
+share of rows and MoE layers at which the program chose other experts
+than the reference's own router would have, over every layer whose router
+runs and over the configuration's first `route_lead_layers` of those (a
+dense layer among them is not counted). Rounding makes the hidden
 states of a bfloat16 program and a float32 reference part a little more
 with every layer, so near-ties flip more often the deeper the layer; in
 the first layers the two see nearly the same input, and there a router
@@ -105,7 +106,8 @@ def readings(logits: list, chosen: list) -> dict:
 
 
 def router_readings(ref: Reference, lead_layers: int) -> dict:
-    """The router's readings of a reference that followed given experts."""
+    """The router's readings of a reference that followed given experts,
+    each over MoE layers: all, the first `lead_layers`, and one by one."""
     return {"route_mismatch_share": ref.route_mismatch_share(),
             "route_mismatch_lead": ref.route_mismatch_share(lead_layers),
             "route_margin": max(ref.route_margins),

@@ -3,20 +3,21 @@
 It imports nothing of the program. It makes each tensor's blocks again
 from (seed, name) (blocks.py), dequantizes them with its own dequantizers,
 written from ggml's block layouts (ggml-quants.c dequantize_row_*), and
-runs llama.cpp's decoder over whole sequences with no cache: RMSNorm,
-RoPE (NORM: adjacent pairs, the `llama` arch; NEOX: halves, `qwen2`),
-grouped-query attention with a causal mask, SwiGLU, and for a mixture of
-experts the softmax router, its top-k and the renormalized top-k weights
-(build_llama's MoE branch). TF32 is switched off: every product is f32.
+runs llama.cpp's decoder over whole sequences with no cache: the token
+embedding, each layer as the configuration's architecture file gives it
+(archs/<arch>.py `block`, built from the helpers here: RMSNorm, RoPE,
+causal grouped-query attention, SwiGLU, and for a mixture of experts the
+softmax router, its top-k and the weighted sum of the chosen experts),
+the output norm and the head. TF32 is switched off: every product is f32.
 
 It runs layer by layer, so that one layer's weights in f32 are all it
 holds besides the hidden states.
 
 `precision="fp8"` is the control: every linear layer's input and weight
-rounded to float8 e4m3 with a scale a row, as an fp8 GEMM would take them,
-and multiplied in f32; the router, norms and attention stay f32.
-`precision="bf16"` rounds the same operands, and the hidden state after
-each layer, to bfloat16: the sensitivity of the model itself to the
+(`linear`) rounded to float8 e4m3 with a scale a row, as an fp8 GEMM would
+take them, and multiplied in f32; the router, norms and attention stay
+f32. `precision="bf16"` rounds the same operands, and the hidden state
+after each layer, to bfloat16: the sensitivity of the model itself to the
 precision the configuration states (a reading beside the control).
 """
 
@@ -26,7 +27,8 @@ import math
 
 import torch
 
-from .blocks import F32, Q4_K, Q5_K, Q6_K, Q8_0, make_blocks, make_dense
+from . import spec
+from .blocks import F32, Q4_K, Q5_0, Q5_K, Q6_K, Q8_0, make_blocks, make_dense
 from .layout import Tensor, tensor_table
 
 FP8_MAX = 448.0  # largest finite float8 e4m3fn
@@ -90,13 +92,25 @@ def dequant_q6_k(raw: torch.Tensor) -> torch.Tensor:
     return ((d[:, :, None, None] * s) * q.float()).reshape(-1, 256)
 
 
+def dequant_q5_0(raw: torch.Tensor) -> torch.Tensor:
+    """(nb, 22) -> (nb, 32): y = d * (q - 16), q element l's nibble (the low
+    one of qs[l] for l < 16, the high one of qs[l - 16] above) with bit l
+    of qh as its fifth bit."""
+    qs = raw[:, 6:22].int()
+    nib = torch.cat([qs & 15, qs >> 4], 1)  # (nb, 32)
+    l = torch.arange(32, device=raw.device)
+    hi = (raw[:, 2:6].int()[:, l // 8] >> (l % 8)) & 1
+    return _f16(raw[:, 0:2]) * ((nib | (hi << 4)) - 16).float()
+
+
 def dequant_q8_0(raw: torch.Tensor) -> torch.Tensor:
     """(nb, 34) -> (nb, 32): y = d * q."""
     return _f16(raw[:, 0:2]) * raw[:, 2:34].contiguous().view(torch.int8).float()
 
 
-DEQUANT = {Q4_K: dequant_q4_k, Q5_K: dequant_q5_k, Q6_K: dequant_q6_k, Q8_0: dequant_q8_0}
-_BLOCK_BYTES = {Q4_K: 144, Q5_K: 176, Q6_K: 210, Q8_0: 34}
+DEQUANT = {Q4_K: dequant_q4_k, Q5_K: dequant_q5_k, Q6_K: dequant_q6_k, Q5_0: dequant_q5_0,
+           Q8_0: dequant_q8_0}
+_BLOCK_BYTES = {Q4_K: 144, Q5_K: 176, Q6_K: 210, Q5_0: 22, Q8_0: 34}
 
 
 def weight(seed: int, t: Tensor, device) -> torch.Tensor:
@@ -114,7 +128,8 @@ def _fp8(a: torch.Tensor) -> torch.Tensor:
     return (a / s).to(torch.float8_e4m3fn).float() * s
 
 
-def _linear(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
+    """x @ w^T with both operands at `precision` (the control rounds here)."""
     if precision == "fp8":
         x, w = _fp8(x), _fp8(w)
     elif precision == "bf16":
@@ -142,8 +157,7 @@ def rope(x: torch.Tensor, pos: torch.Tensor, base: float, kind: str) -> torch.Te
     raise ValueError(f"unknown rope type {kind!r}")
 
 
-def attention(q, k, v, n_kv: int) -> torch.Tensor:
-    """Causal GQA over one sequence: q (T, H, d), k / v (T, KVH, d)."""
+def _causal(q, k, v, n_kv: int) -> torch.Tensor:
     t, h, d = q.shape
     g = h // n_kv
     k = k.repeat_interleave(g, 1)
@@ -151,7 +165,22 @@ def attention(q, k, v, n_kv: int) -> torch.Tensor:
     s = torch.einsum("thd,uhd->htu", q, k) / math.sqrt(d)
     mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
     p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
-    return torch.einsum("htu,uhd->thd", p, v).reshape(t, h * d)
+    return torch.einsum("htu,uhd->thd", p, v).reshape(t, -1)
+
+
+def attention(q, k, v, n_kv: int, lens: list[int]) -> torch.Tensor:
+    """Causal GQA within each sequence of `lens` rows, scores over sqrt(d):
+    q / k (T, H / KVH, d), v (T, KVH, dv) -> (T, H * dv); dv may differ
+    from d (latent attention's values)."""
+    return torch.cat([_causal(q[o:o + n], k[o:o + n], v[o:o + n], n_kv)
+                      for o, n in zip(_offsets(lens), lens)])
+
+
+def swiglu(f: torch.Tensor, gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
+           precision: str) -> torch.Tensor:
+    """down(silu(gate(f)) * up(f))."""
+    return linear(torch.nn.functional.silu(linear(f, gate, precision))
+                  * linear(f, up, precision), down, precision)
 
 
 class Reference:
@@ -162,7 +191,12 @@ class Reference:
         self.seed = seed
         self.device = torch.device(device)
         self.precision = precision
+        self.arch = spec.arch(self.m)
         self.tensors = {t.name: t for t in tensor_table(self.m, cfg["types"])}
+        # the layers whose router runs: routes and router readings are
+        # indexed by these alone, in order
+        self.moe_layers = [i for i in range(self.m["n_layers"])
+                           if f"blk.{i}.ffn_gate_inp.weight" in self.tensors]
 
     def w(self, name: str) -> torch.Tensor:
         return weight(self.seed, self.tensors[name], self.device)
@@ -173,95 +207,82 @@ class Reference:
         """For each token sequence, the f32 logits (len - first, V) at its
         positions first, first + 1, ...: each row predicts the token after.
         `routes`, for a mixture of experts, gives each sequence's experts
-        (len, n_layers, k) to follow instead of its own top-k; the weights
-        stay the reference's own softmax at those experts, renormalized.
-        Where they are followed, each layer's `route_rows`, `route_differ`
-        (the rows whose experts it would have chosen otherwise) and
-        `route_margins` (the largest margin between its own k-th and
-        (k+1)-th probabilities among those) are kept; after the call
-        `chosen` holds each sequence's experts as used."""
+        (len, MoE layers, k) to follow instead of its own top-k; the
+        weights stay the reference's own softmax at those experts, under
+        the layer's weight rule. Where they are followed, each MoE layer's
+        `route_rows`, `route_differ` (the rows whose experts it would have
+        chosen otherwise) and `route_margins` (the largest margin between
+        its own k-th and (k+1)-th probabilities among those) are kept;
+        after the call `chosen` holds each sequence's experts as used."""
         m, dev, prec = self.m, self.device, self.precision
         tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         try:
             lens = [len(s) for s in seqs]
             self.routes = None if routes is None else torch.cat(routes).to(dev)
-            n = m["n_layers"]
+            n = len(self.moe_layers)
             self.route_rows, self.route_differ, self.route_margins = [0] * n, [0] * n, [0.0] * n
             self.chosen = []  # the experts each MoE layer used, (T, k)
             ids = torch.tensor([t for s in seqs for t in s], device=dev)
             x = self.w("token_embd.weight")[ids]
             pos = torch.cat([torch.arange(n, device=dev) for n in lens])
             for i in range(m["n_layers"]):
-                x = self._layer(i, x, pos, lens)
+                x = self.arch.block(self, i, x, pos, lens)
                 if prec == "bf16":
                     x = x.bfloat16().float()
             rows = torch.cat([torch.arange(o + f, o + n, device=dev) for o, f, n in
                               zip(_offsets(lens), first, lens)])
             h = rms_norm(x[rows], self.w("output_norm.weight"), m["rms_eps"])
-            out = _linear(h, self.w("output.weight"), prec)
+            out = linear(h, self.w("output.weight"), prec)
             if self.chosen:
-                routes = torch.stack(self.chosen, 1).cpu()  # (T, n_layers, k)
+                routes = torch.stack(self.chosen, 1).cpu()  # (T, MoE layers, k)
                 self.chosen = list(routes.split(lens))
             return list(out.split([n - f for n, f in zip(lens, first)]))
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
-    def _layer(self, i: int, x, pos, lens) -> torch.Tensor:
-        m, prec, p = self.m, self.precision, f"blk.{i}."
-        h, kvh, hd = m["n_heads"], m["n_kv_heads"], m["head_dim"]
-        a = rms_norm(x, self.w(p + "attn_norm.weight"), m["rms_eps"])
-        qkv = []
-        for n, heads in (("q", h), ("k", kvh), ("v", kvh)):
-            y = _linear(a, self.w(p + f"attn_{n}.weight"), prec)
-            if m.get("qkv_bias"):
-                y = y + self.w(p + f"attn_{n}.bias")
-            qkv.append(y.reshape(-1, heads, hd))
-        q, k, v = qkv
-        q, k = (rope(t, pos, m["rope_base"], m["rope_type"]) for t in (q, k))
-        att = torch.cat([attention(q[o:o + n], k[o:o + n], v[o:o + n], kvh)
-                         for o, n in zip(_offsets(lens), lens)])
-        x = x + _linear(att, self.w(p + "attn_output.weight"), prec)
-        f = rms_norm(x, self.w(p + "ffn_norm.weight"), m["rms_eps"])
-        if m.get("n_expert"):
-            return x + self._moe(i, f, None if self.routes is None else self.routes[:, i])
-        gate = _linear(f, self.w(p + "ffn_gate.weight"), prec)
-        up = _linear(f, self.w(p + "ffn_up.weight"), prec)
-        return x + _linear(torch.nn.functional.silu(gate) * up, self.w(p + "ffn_down.weight"),
-                           prec)
-
     def route_mismatch_share(self, layers: int | None = None) -> float:
-        """The share of rows and layers, over the first `layers` layers or
-        all, whose followed experts differ from the reference's own."""
-        n = self.m["n_layers"] if layers is None else layers
+        """The share of rows and MoE layers, over the first `layers` MoE
+        layers or all, whose followed experts differ from the reference's
+        own."""
+        n = len(self.moe_layers) if layers is None else layers
         return sum(self.route_differ[:n]) / max(sum(self.route_rows[:n]), 1)
 
-    def _moe(self, i: int, f: torch.Tensor, forced: torch.Tensor | None) -> torch.Tensor:
-        m, prec, k, p = self.m, self.precision, self.m["n_expert_used"], f"blk.{i}."
+    def experts(self, i: int, f: torch.Tensor, norm: bool = True,
+                scale: float = 1.0) -> torch.Tensor:
+        """The routed experts of layer i over its FFN input f: the f32
+        softmax router, its top-k (or the routes followed), and the sum of
+        the chosen SwiGLU experts under the softmax at those experts,
+        renormalised over them where `norm` (build_llama's MoE branch),
+        else as they are, times `scale`. Shared experts are the block's."""
+        prec, k, p = self.precision, self.m["n_expert_used"], f"blk.{i}."
+        j = self.moe_layers.index(i)
         probs = torch.softmax(f @ self.w(p + "ffn_gate_inp.weight").t(), -1)
         top = torch.topk(probs, k + 1, -1)
         ids = top.indices[:, :k]
-        if forced is not None:
+        if self.routes is not None:
+            forced = self.routes[:, j]
             differ = (ids.sort(-1).values != forced.sort(-1).values).any(-1)
-            self.route_differ[i] += int(differ.sum())
-            self.route_rows[i] += differ.numel()
+            self.route_differ[j] += int(differ.sum())
+            self.route_rows[j] += differ.numel()
             if bool(differ.any()):
                 margin = top.values[:, k - 1] - top.values[:, k]
-                self.route_margins[i] = max(self.route_margins[i], float(margin[differ].max()))
+                self.route_margins[j] = max(self.route_margins[j], float(margin[differ].max()))
             ids = forced
         self.chosen.append(ids)
         wts = probs.gather(1, ids)
-        wts = wts / wts.sum(-1, keepdim=True)
+        if norm:
+            wts = wts / wts.sum(-1, keepdim=True)
+        if scale != 1.0:
+            wts = wts * scale
         gate, up, down = (self.w(p + n) for n in ("ffn_gate_exps.weight", "ffn_up_exps.weight",
                                                   "ffn_down_exps.weight"))
         out = torch.zeros_like(f)
-        for e in range(m["n_expert"]):
+        for e in range(gate.shape[0]):
             rows, slot = (ids == e).nonzero(as_tuple=True)
             if rows.numel() == 0:
                 continue
-            xe = f[rows]
-            ye = _linear(torch.nn.functional.silu(_linear(xe, gate[e], prec))
-                         * _linear(xe, up[e], prec), down[e], prec)
+            ye = swiglu(f[rows], gate[e], up[e], down[e], prec)
             out.index_add_(0, rows, wts[rows, slot, None] * ye)
         return out
 

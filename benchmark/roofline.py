@@ -11,7 +11,9 @@ format then does not move the yardstick.
 from __future__ import annotations
 
 from collections import Counter
+from typing import NamedTuple
 
+from . import spec
 from .blocks import row_bytes
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor cores, HBM3
@@ -50,23 +52,23 @@ def kind_of(name: str) -> str:
     return next((k for k, ms in KERNEL_NAMES.items() if any(m in name for m in ms)), "other")
 
 
+class BlockCost(NamedTuple):
+    """What an architecture file's `cost(model)` gives: a token's FLOPs
+    through every layer's weights (2 per weight it multiplies: the experts
+    it uses, routers included), the attention FLOPs of one visible cache
+    cell over all layers, and the cache bytes of one cell over all layers."""
+    layer_flops: float
+    attn_flops_cell: float
+    kv_bytes_cell: float
+
+
 class ModelCost:
-    """A configuration's operations and bytes (configs/<name>.json "model"
-    and its tensor table)."""
+    """A configuration's operations and bytes (configs/<name>.json "model",
+    its architecture's cost and its tensor table)."""
 
     def __init__(self, model: dict, table: list):
-        m = self.m = model
-        e, h, kvh, hd = m["n_embd"], m["n_heads"], m["n_kv_heads"], m["head_dim"]
-        self.n_layers = m["n_layers"]
-        self.n_exp = m.get("n_expert", 0)
-        self.k_used = m.get("n_expert_used", 0)
-        attn = e * (h + 2 * kvh) * hd + h * hd * e
-        ffn = (self.k_used if self.n_exp else 1) * 3 * e * m["n_ff"]
-        router = e * self.n_exp
-        self.params_layer = attn + ffn + router  # weights a token multiplies
-        self.params_head = e * m["n_vocab"]
-        self.attn_flops_cell = 4.0 * hd * h  # QK^T and PV, one visible cell, one layer
-        self.kv_bytes_cell = 2.0 * kvh * hd * KV_BYTES * self.n_layers  # K and V, all layers
+        self.layer_flops, self.attn_flops_cell, self.kv_bytes_cell = spec.arch(model).cost(model)
+        self.head_flops = 2.0 * model["n_embd"] * model["n_vocab"]
         self.weight_bytes = 0.0  # every quantized weight but the head and embedding
         self.head_bytes = 0.0
         self.embd_row_bytes = 0.0
@@ -87,8 +89,8 @@ class ModelCost:
     def token_flops(self, visible: int, head: bool) -> float:
         """One token's FLOPs through every layer with `visible` cache cells
         (itself included), and the head's where it is computed."""
-        f = self.n_layers * (2.0 * self.params_layer + self.attn_flops_cell * visible)
-        return f + (2.0 * self.params_head if head else 0.0)
+        f = self.layer_flops + self.attn_flops_cell * visible
+        return f + (self.head_flops if head else 0.0)
 
     def prefill_chunk(self, rows: int, pos0: int, launch_bytes: float | None) -> float:
         """Least seconds of a prefill chunk of `rows` at positions pos0...:

@@ -13,10 +13,11 @@ nearly the same hidden states and a router wrong for some rows shows at
 its full share.
 
 `RouteLog` records, for every forward of the window, which request and
-position each row holds and, for each MoE layer, the expert ids that
-`moe_ffn` took from its router's `torch.topk`. Nothing is added to the
-device's work: the ids are the program's own tensors, kept as they are
-and read once the window has closed.
+position each row holds and, for each MoE layer (a layer whose router
+runs: a dense layer among them is neither recorded nor compared), the
+expert ids that `moe_ffn` took from its router's `torch.topk`. Nothing is
+added to the device's work: the ids are the program's own tensors, kept
+as they are and read once the window has closed.
 """
 
 from __future__ import annotations
@@ -30,8 +31,10 @@ class RouteLog:
         from prima_tpu_torch.models import llama
 
         self.engine = engine
-        self.n_layers = engine.cfg.n_layers
-        self.layer_index = {id(layer): i for i, layer in enumerate(engine.params["layers"])}
+        # MoE layer j is the j-th layer with a router
+        moe = [layer for layer in engine.params["layers"] if layer.get("ffn_gate_inp") is not None]
+        self.n_moe = len(moe)
+        self.layer_index = {id(layer): j for j, layer in enumerate(moe)}
         self.forwards: list[tuple] = []  # (request ids a row, positions a row, [ids a layer])
         self.current: list | None = None
         self._fused_start = None
@@ -60,7 +63,7 @@ class RouteLog:
 
     def _wrap(self, fn, rows):
         def wrapped(*a, **kw):
-            self.current = [*rows(a), [None] * self.n_layers]
+            self.current = [*rows(a), [None] * self.n_moe]
             self.forwards.append(tuple(self.current))
             try:
                 return fn(*a, **kw)
@@ -105,15 +108,15 @@ class RouteLog:
         return out
 
     def routes(self, request_id, n_positions: int, k: int) -> torch.Tensor | None:
-        """(n_positions, n_layers, k) expert ids the program used at each
-        position of one request, or None where a position or layer was not
-        seen."""
+        """(n_positions, MoE layers, k) expert ids the program used at each
+        position of one request, or None where a position or MoE layer was
+        not seen."""
         if self._by_request is None:
             self._by_request = {}
             for f in self.forwards:
                 for rid in set(f[0]) - {None}:
                     self._by_request.setdefault(rid, []).append(f)
-        out = torch.full((n_positions, self.n_layers, k), -1, dtype=torch.long)
+        out = torch.full((n_positions, self.n_moe, k), -1, dtype=torch.long)
         for rids, pos, layers in self._by_request.get(request_id, []):
             rows = [r for r, rid in enumerate(rids) if rid == request_id and pos[r] < n_positions]
             if not rows:

@@ -287,16 +287,16 @@ def _weight_ranges(params: dict, types_by_name: dict) -> list:
     """(first byte, end, ggml type) of every quantized weight's codes."""
     from prima_tpu_torch.quant.qtensor import QTensor
 
+    # the program's own keys of a layer's weights; a layer's other keys are
+    # the GGUF names themselves (ffn_gate_exps, ffn_up_shexp, ...)
     keys = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
-            "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down",
-            "ffn_gate_exps": "ffn_gate_exps", "ffn_up_exps": "ffn_up_exps",
-            "ffn_down_exps": "ffn_down_exps"}
+            "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down"}
     named = [("token_embd.weight", params.get("tok_embd")), ("output.weight", params.get("output"))]
     for i, layer in enumerate(params["layers"]):
-        named += [(f"blk.{i}.{g}.weight", layer.get(k)) for k, g in keys.items()]
+        named += [(f"blk.{i}.{keys.get(k, k)}.weight", v) for k, v in layer.items()]
     out = []
     for name, qt in named:
-        if isinstance(qt, QTensor):
+        if isinstance(qt, QTensor) and name in types_by_name:
             lo = qt.qs.data_ptr()
             out.append((lo, lo + qt.qs.numel() * qt.qs.element_size(), types_by_name[name]))
     return sorted(out)

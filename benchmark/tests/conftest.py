@@ -18,16 +18,18 @@ def pytest_configure(config):
 def write_root(path, per_layer: bool = True) -> str:
     """BENCHMARK.json with the tiny cells `tiny.dense` (qwen2 with biases)
     and `tiny.moe` (llama with 4 experts, top-2) under one tiny mix, and
-    the benchmark's own metric readers."""
+    the benchmark's own metric readers and architecture files."""
     root = str(path)
-    for d in ("configs", "traffic", "metrics"):
+    for d in ("configs", "traffic", "metrics", "archs"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     for name in ("tiny-qwen2", "tiny-moe"):
         shutil.copy(os.path.join(HERE, "data", name + ".json"),
                     os.path.join(root, "configs", name + ".json"))
     shutil.copy(os.path.join(HERE, "data", "tiny.json"), os.path.join(root, "traffic"))
-    for f in os.listdir(os.path.join(BENCH, "metrics")):
-        shutil.copy(os.path.join(BENCH, "metrics", f), os.path.join(root, "metrics"))
+    for d in ("metrics", "archs"):
+        for f in os.listdir(os.path.join(BENCH, d)):
+            if f.endswith(".py"):
+                shutil.copy(os.path.join(BENCH, d, f), os.path.join(root, d))
     with open(os.path.join(BENCH, os.pardir, "BENCHMARK.json")) as f:
         bench = json.load(f)
     bench["configs"] = [{"name": n, "source": "test", "file": f"configs/{n}.json",

@@ -14,8 +14,8 @@ from benchmark.roofline import (PEAK_BYTES_PER_S, PEAK_FLOPS, ModelCost, device_
 from benchmark.serve import Profile, Recorder, Run, Served, Span, TimedQueue
 from benchmark.traffic import Request
 
-TINY = {"n_layers": 2, "n_embd": 256, "n_heads": 4, "n_kv_heads": 2, "head_dim": 64,
-        "n_ff": 512, "n_vocab": 512}
+TINY = {"arch": "llama", "n_layers": 2, "n_embd": 256, "n_heads": 4, "n_kv_heads": 2,
+        "head_dim": 64, "n_ff": 512, "n_vocab": 512}
 ALL_Q4_K = {k: "Q4_K" for k in ("token_embd.weight", "output.weight", "attn_q.weight",
                                 "attn_k.weight", "attn_v.weight", "attn_output.weight",
                                 "ffn_gate.weight", "ffn_up.weight", "ffn_down.weight")}
@@ -44,7 +44,7 @@ def test_gemv_launch_work():
 def test_model_least_times():
     cost = ModelCost(TINY, tensor_table(TINY, ALL_Q4_K))
     layer = 256 * 8 * 64 + 4 * 64 * 256 + 3 * 256 * 512  # q, k, v, o, gate, up, down
-    assert cost.params_layer == layer == 589824
+    assert layer == 589824 and cost.layer_flops == 2 * 2 * layer
     # one token at 10 visible cells with the head: 2 layers of matmuls and attention
     assert cost.token_flops(10, head=True) == 2 * (2 * layer + 4 * 64 * 4 * 10) + 2 * 256 * 512
     # Q4_K: q 36864, k / v 18432, o 36864, gate / up 73728, down 73728 (2 blocks a row)
@@ -70,7 +70,7 @@ def test_moe_params_count_the_experts_used():
     types = dict(ALL_Q4_K, **{k: "Q4_K" for k in ("ffn_gate_exps.weight", "ffn_up_exps.weight",
                                                   "ffn_down_exps.weight")})
     cost = ModelCost(moe, tensor_table(moe, types))
-    assert cost.params_layer == 256 * 8 * 64 + 4 * 64 * 256 + 2 * 3 * 256 * 512 + 256 * 4
+    assert cost.layer_flops == 2 * 2 * (256 * 8 * 64 + 4 * 64 * 256 + 2 * 3 * 256 * 512 + 256 * 4)
     # every expert's weights in the whole-model bytes
     assert cost.weight_bytes == 2 * (36864 + 2 * 18432 + 36864 + 4 * 3 * 73728)
 

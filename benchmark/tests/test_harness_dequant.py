@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.blocks import Q4_K, Q5_K, Q6_K, Q8_0, WEIGHT_RMS, make_blocks, make_dense
+from benchmark.blocks import Q4_K, Q5_0, Q5_K, Q6_K, Q8_0, WEIGHT_RMS, make_blocks, make_dense
 from benchmark.reference import DEQUANT
 
 f32 = np.float32
@@ -68,15 +68,26 @@ def ggml_q6_k(b):
     return y
 
 
+def ggml_q5_0(b):
+    d, qh, qs = _f16(b[0:2]), int.from_bytes(bytes(b[2:6]), "little"), b[6:22]
+    y = np.zeros(32, f32)
+    for j in range(16):
+        xh_0 = ((qh >> j) << 4) & 0x10
+        xh_1 = (qh >> (j + 12)) & 0x10
+        y[j] = f32(((qs[j] & 0x0F) | xh_0) - 16) * d
+        y[j + 16] = f32(((qs[j] >> 4) | xh_1) - 16) * d
+    return y
+
+
 def ggml_q8_0(b):
     return _f16(b[0:2]) * np.frombuffer(bytes(b[2:34]), np.int8).astype(f32)
 
 
 GGML = {Q4_K: (ggml_q4_k, 144), Q5_K: (ggml_q5_k, 176), Q6_K: (ggml_q6_k, 210),
-        Q8_0: (ggml_q8_0, 34)}
+        Q5_0: (ggml_q5_0, 22), Q8_0: (ggml_q8_0, 34)}
 
 
-@pytest.mark.parametrize("t", [Q4_K, Q5_K, Q6_K, Q8_0])
+@pytest.mark.parametrize("t", [Q4_K, Q5_K, Q6_K, Q5_0, Q8_0])
 def test_random_bytes_match_ggml(t):
     fn, nb = GGML[t]
     rng = np.random.default_rng(t)
@@ -96,6 +107,12 @@ def test_hand_made_blocks():
         [int(v) & 0xFF for v in range(-16, 16)]
     assert np.array_equal(DEQUANT[Q8_0](torch.tensor([b], dtype=torch.uint8))[0].numpy(),
                           np.arange(-16, 16, dtype=f32) * 0.5)
+    # Q5_0: d = 0.25, every nibble 0x21 (element j: 1, j + 16: 2), fifth
+    # bits set for the odd elements (qh 0xAAAAAAAA)
+    b = np.frombuffer(np.float16(0.25).tobytes(), np.uint8).tolist() + [0xAA] * 4 + [0x21] * 16
+    q = np.array([1] * 16 + [2] * 16) + 16 * (np.arange(32) % 2)
+    assert np.array_equal(DEQUANT[Q5_0](torch.tensor([b], dtype=torch.uint8))[0].numpy(),
+                          (q - 16).astype(f32) * f32(0.25))
     # Q4_K: d = 1, dmin = 0.5, sub-block j has sc = j + 1 and m = 2 j; every
     # nibble holds 3 in its low half and 5 in its high half
     sc, m = list(range(1, 9)), [2 * j for j in range(8)]
@@ -112,7 +129,7 @@ def test_hand_made_blocks():
         assert np.all(y[j] == f32((j + 1) * q - 0.5 * 2 * j))
 
 
-@pytest.mark.parametrize("t", [Q4_K, Q5_K, Q6_K, Q8_0])
+@pytest.mark.parametrize("t", [Q4_K, Q5_K, Q6_K, Q5_0, Q8_0])
 def test_generated_weights_are_centred(t):
     _, nb = GGML[t]
     raw = make_blocks(11, "w", t, (64, 512), "cpu")
@@ -131,7 +148,7 @@ def test_program_decodes_the_same_weights():
     from prima_tpu_torch.gguf.reader import TensorInfo
     from prima_tpu_torch.quant.dequant_np import dequantize_tensor
 
-    for t, nb in ((Q4_K, 144), (Q5_K, 176), (Q6_K, 210), (Q8_0, 34)):
+    for t, nb in ((Q4_K, 144), (Q5_K, 176), (Q6_K, 210), (Q5_0, 22), (Q8_0, 34)):
         raw = make_blocks(3, "x", t, (8, 512), "cpu")
         ti = TensorInfo("x", (512, 8), GGMLType(t), 0, raw.numpy())
         assert np.array_equal(dequantize_tensor(ti).reshape(8, 512),

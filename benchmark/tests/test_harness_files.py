@@ -1,7 +1,8 @@
 """The benchmark is found by names: a configuration, a traffic mix and a
-metric dropped in as new files run without an edit to the harness; and no
-module of the benchmark imports JAX or the JAX package, nor the reference
-anything of the program."""
+metric dropped in as new files run without an edit to the harness (an
+architecture too: test_harness_archs.py); and no module of the benchmark
+imports JAX or the JAX package, nor the reference, with every
+architecture file it loads, anything of the program."""
 
 import ast
 import json
@@ -65,8 +66,8 @@ def _imports(path: str) -> tuple[set, set]:
         if isinstance(node, ast.Import):
             absolute |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom):
-            if node.level:
-                relative.add(node.module or "")
+            if node.level:  # from . import x, or from .x import y
+                relative |= {node.module} if node.module else {a.name for a in node.names}
             else:
                 absolute.add(node.module.split(".")[0])
                 if node.module == "benchmark":
@@ -83,27 +84,42 @@ def _sources():
         yield from (os.path.join(d, f) for f in files if f.endswith(".py"))
 
 
+# the architecture files: the benchmark's own and the one a test adds
+ARCHS = sorted([os.path.join(BENCH, "archs", f) for f in os.listdir(os.path.join(BENCH, "archs"))
+                if f.endswith(".py")] + [os.path.join(HERE, "data", "qwen2moe.py")])
+
+
 def test_no_jax_or_jax_package():
-    found = {p: _imports(p)[0] & set(FORBIDDEN) for p in _sources()}
+    found = {p: _imports(p)[0] & set(FORBIDDEN) for p in [*_sources(), *ARCHS]}
     assert not any(found.values()), found
     assert "prima_tpu" in FORBIDDEN and "prima_tpu_torch" not in FORBIDDEN
+    assert {os.path.join(BENCH, "archs", "llama.py")} <= set(_sources())
 
 
 def test_reference_imports_nothing_of_the_program():
-    seen, todo = set(), ["reference"]
+    """The reference's modules, and every architecture file with what it
+    imports, import nothing of the program, by their sources and once
+    loaded: a reference over a tiny mixture of experts leaves neither the
+    program nor JAX in sys.modules."""
+    seen, todo = set(), ["reference", *ARCHS]
     while todo:
         mod = todo.pop()
         if mod in seen:
             continue
         seen.add(mod)
-        absolute, relative = _imports(os.path.join(BENCH, mod + ".py"))
+        path = mod if mod.endswith(".py") else os.path.join(BENCH, *mod.split(".")) + ".py"
+        absolute, relative = _imports(path)
         assert not absolute & {"prima_tpu_torch", *FORBIDDEN}, (mod, absolute)
         todo += list(relative)
-    assert seen == {"reference", "blocks", "layout"}
+    assert {m for m in seen if not m.endswith(".py")} == {
+        "reference", "blocks", "layout", "spec", "roofline", "archs.llama"}
     out = subprocess.run(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-         "import benchmark.reference; print(sorted({m.split('.')[0] for m in sys.modules}))",
-         ROOT], capture_output=True, text=True, check=True, timeout=120)
+         "from benchmark import spec; from benchmark.reference import Reference; "
+         "Reference(spec.load_json(sys.argv[2]), 1, 'cpu').logits([[1, 2, 3]], [0]); "
+         "print(sorted({m.split('.')[0] for m in sys.modules}))",
+         ROOT, os.path.join(HERE, "data", "tiny-moe.json")],
+        capture_output=True, text=True, check=True, timeout=120)
     loaded = set(ast.literal_eval(out.stdout.strip()))
     assert not loaded & {"prima_tpu_torch", *FORBIDDEN}
 
