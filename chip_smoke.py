@@ -184,8 +184,9 @@ Phases, each of which fails the run on any error or mismatch:
                minutes): prefill ms,
                per-token wall and device ms, idle share, peak memory, and for
                Mamba and RWKV-6 the decode's logits against one full-sequence
-               forward; then tiny deepseek2, minicpm3, mamba, rwkv6 and t5
-               GGUFs through the CLI, card against --device cpu. None of
+               forward; then tiny deepseek2 (served through Engine),
+               minicpm3, mamba, rwkv6 and t5 GGUFs through the CLI, card
+               against --device cpu. None of
                these runs may launch a hand kernel.
  14. mesh    — the mesh plane (--pp/--tp/--dp) over torch.distributed, several
                ranks on this card, so gloo with host staging (the transport is
@@ -4980,11 +4981,12 @@ def _tensors(tree):
 
 
 def tiny_family_ggufs(work: str) -> dict:
-    """Tiny GGUFs of the five archs the CLI sends to the family runtimes,
-    written from seeds by the port's GGUFWriter with the trained tiny
-    pair's tokenizer: deepseek2 (Lite layout, YaRN keys, 4 experts),
-    minicpm3 (a q LoRA, LongRoPE factors, rope_orig_ctx 8), mamba, rwkv6
-    (rescale_every 1) and t5 (gated, untied)."""
+    """Tiny GGUFs of the five family archs, written from seeds by the
+    port's GGUFWriter with the trained tiny pair's tokenizer: deepseek2
+    (Lite layout, YaRN keys, 4 experts; the CLI serves it through Engine,
+    the decoder's latent attention), and the four the CLI sends to the
+    family runtimes: minicpm3 (a q LoRA, LongRoPE factors, rope_orig_ctx
+    8), mamba, rwkv6 (rescale_every 1) and t5 (gated, untied)."""
     import numpy as np
 
     from prima_tpu_torch.gguf.reader import GGUFModel
@@ -5121,10 +5123,30 @@ def tiny_family_ggufs(work: str) -> dict:
 
 
 def family_cli(work: str) -> dict:
-    """python -m prima_tpu_torch.tools.cli on each tiny family GGUF: on the
-    card, then --device cpu, equal exit codes and stdout, no hand kernel
-    launched; mamba greedy and sampled (--temp 0.8 -s 42)."""
+    """python -m prima_tpu_torch.tools.cli on each tiny family GGUF
+    (deepseek2 through Engine, the others through their family runtimes):
+    on the card, then --device cpu, equal exit codes and stdout, no hand
+    kernel launched (the tiny weights are f32: no GEMV kernel); mamba
+    greedy and sampled (--temp 0.8 -s 42). The CLI streams Engine's text
+    a whole UTF-8 character at a time, so random tokens may print nothing:
+    for deepseek2 the token ids its engine streamed are compared too, all
+    the tokens asked for, by `bf16_streams_agree`."""
+    from prima_tpu_torch.runtime.engine import Engine
     from prima_tpu_torch.tools import cli
+
+    def engine_call(args: list) -> tuple:
+        streamed, real = [], Engine.step_fused
+
+        def step_fused(self, *a, **kw):
+            events = real(self, *a, **kw)
+            streamed.extend(ev.token for ev in events if ev.token is not None)
+            return events
+
+        Engine.step_fused = step_fused
+        try:
+            return tool_call(cli.main, args) + (streamed,)
+        finally:
+            Engine.step_fused = real
 
     res = {}
     runs = [(arch, ["--temp", "0"]) for arch in ("deepseek2", "minicpm3", "mamba", "rwkv6", "t5")]
@@ -5132,24 +5154,62 @@ def family_cli(work: str) -> dict:
     files = tiny_family_ggufs(work)
     for arch, extra in runs:
         args = ["-m", files[arch], "-p", "Once upon a time", "-n", "12"] + extra
+        call = engine_call if arch == "deepseek2" else lambda a: tool_call(cli.main, a)
         counters = zero_counts()
-        card = tool_call(cli.main, args)
+        card = call(args)
         launches = read_counts(counters)
-        cpu = tool_call(cli.main, args + ["--device", "cpu"])
+        cpu = call(args + ["--device", "cpu"])
         key = arch + ("_sampled" if "-s" in extra else "")
         res[key] = {"rc": card[0], "text": card[1], "equal": card[:2] == cpu[:2],
                     "launches": launches}
+        if arch == "deepseek2":
+            res[key].update(tokens=card[3], cpu_tokens=cpu[3])
+        if arch == "deepseek2":
+            res[key].update(bf16_streams_agree(files[arch], args[3], card[3], cpu[3]))
         if card[:2] != cpu[:2] or card[0] != 0 or launches \
-                or not card[1].startswith("Once upon a time"):
+                or not card[1].startswith("Once upon a time") \
+                or (arch == "deepseek2" and not res[key]["streams_agree"]):
             raise AssertionError(f"CLI on {key}: card {card[:2]} against CPU {cpu[:2]}, "
+                                 f"tokens {card[3:]} against {cpu[3:]}, "
                                  f"launches {launches}, stderr {card[2][-1000:]}")
     return res
 
 
+# two greedy bf16 streams may part only where the f32 reference's logits of
+# their two tokens lie within this share of its max |logit|: a tie at bf16
+BF16_TIE = 0.05
+
+
+def bf16_streams_agree(path: str, prompt: str, card: list, cpu: list) -> dict:
+    """The card's and the CPU's greedy token ids (bf16, the CLI's Engine)
+    against each other, 12 each: equal, or equal up to a step where the
+    f32 recompute runtime's logits over the card's stream (teacher-forced)
+    give their two tokens within BF16_TIE of max |logit|; the streams part
+    there, so the rest is not compared."""
+    import numpy as np
+    import torch
+
+    from prima_tpu_torch.models import deepseek2 as ds
+
+    r: dict = {"streams_agree": len(card) == len(cpu) == 12, "parted_at": None}
+    if not r["streams_agree"] or card == cpu:
+        return r
+    rt = ds.DeepseekV2Runtime.load(path, device="cpu")
+    ids = rt.tokenizer.encode(prompt, add_special=True, parse_special=True)
+    with torch.no_grad():
+        rows = ds.deepseek2_forward(rt.params, rt.cfg, [ids + card[:-1]])[0][len(ids) - 1:]
+    i = next(j for j, (a, b) in enumerate(zip(card, cpu)) if a != b)
+    row = rows[i].float().numpy()
+    gap = float(abs(row[card[i]] - row[cpu[i]]) / np.abs(row).max())
+    r.update(parted_at=i, gap_of_max_logit=gap, streams_agree=gap <= BF16_TIE)
+    return r
+
+
 def phase_families(dev, report: dict) -> None:
     """The four dense family runtimes at full width, then the five archs'
-    tiny GGUFs through the CLI, card against CPU. No hand kernel may launch
-    (the reference's runtimes reach no Pallas kernel)."""
+    tiny GGUFs through the CLI (deepseek2's through Engine), card against
+    CPU. No hand kernel may launch (the reference's runtimes reach no
+    Pallas kernel)."""
     import torch
 
     r: dict = {}

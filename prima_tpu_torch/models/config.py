@@ -84,6 +84,25 @@ class ModelConfig:
     n_heads_arr: tuple = ()
     n_kv_heads_arr: tuple = ()
     n_ff_arr: tuple = ()
+    # deepseek2: multi-head latent attention (build_deepseek2). head_dim is
+    # the query / key width (qk_nope + rope_dim), v_head_dim the value's;
+    # keys and values decompress from a kv_lora_rank latent with one shared
+    # rope_dim RoPE key. The first n_dense_lead layers are dense (n_ff),
+    # the others route n_expert experts of n_ff_exp under softmax weights
+    # times expert_weights_scale, beside n_expert_shared ungated shared ones
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    v_head_dim: int = 0
+    n_dense_lead: int = 0
+    n_expert_shared: int = 0
+    n_ff_exp: int = 0
+    expert_weights_scale: float = 1.0
+    yarn_log_mul: float = 0.0  # {arch}.rope.scaling.yarn_log_multiplier
+
+    @property
+    def qk_nope(self) -> int:
+        """deepseek2: the query / key dims that carry no RoPE."""
+        return self.head_dim - self.rope_dim
 
     @property
     def n_embd_k_gqa(self) -> int:
@@ -104,7 +123,7 @@ class ModelConfig:
                         "granitemoe", "xverse", "exaone", "orion",
                         "baichuan", "refact", "plamo", "codeshell", "jais",
                         "chatglm", "chameleon", "grok", "arctic", "openelm",
-                        "bitnet"):
+                        "bitnet", "deepseek2"):
             raise NotImplementedError(
                 f"arch {arch!r} is not in the decoder arch table (see "
                 "PARITY.md for the full list; mamba/t5/bert load through "
@@ -328,6 +347,22 @@ class ModelConfig:
             # ternary-weight llama variant: per-tensor .scale multipliers,
             # RMS sub-norms before wo and ffn_down (build_bitnet @15676)
             extra["sub_norms"] = True
+        if arch == "deepseek2":
+            # MLA over a latent cache, a leading dense block, routed experts
+            # under raw softmax weights and ungated shared experts
+            # (build_deepseek2; models/deepseek2.py reads the same keys)
+            extra["kv_lora_rank"] = int(g("{arch}.attention.kv_lora_rank"))
+            extra["q_lora_rank"] = int(g("{arch}.attention.q_lora_rank", 0) or 0)
+            extra["v_head_dim"] = int(g("{arch}.attention.value_length"))
+            extra["n_dense_lead"] = int(g("{arch}.leading_dense_block_count", 0) or 0)
+            extra["n_expert_shared"] = int(g("{arch}.expert_shared_count", 0) or 0)
+            extra["n_ff_exp"] = int(g("{arch}.expert_feed_forward_length", 0) or 0)
+            extra["expert_weights_scale"] = float(
+                g("{arch}.expert_weights_scale", 1.0) or 1.0)
+            extra["moe_norm_w"] = bool(g("{arch}.expert_weights_norm", False))
+            extra["yarn_log_mul"] = float(
+                g("{arch}.rope.scaling.yarn_log_multiplier", 0.0) or 0.0)
+            scaling.attn_factor = float(g("{arch}.rope.scaling.attention_factor", 1.0) or 1.0)
         n_expert = int(g("{arch}.expert_count", 0) or 0)
         if n_expert:
             extra["n_expert"] = n_expert
@@ -358,7 +393,8 @@ class ModelConfig:
                        if arch in ("llama", "internlm2", "minicpm", "olmo",
                                    "command-r", "granite", "granitemoe",
                                    "gptj", "xverse", "orion", "baichuan",
-                                   "plamo", "chatglm", "chameleon", "arctic")
+                                   "plamo", "chatglm", "chameleon", "arctic",
+                                   "deepseek2")
                        else RopeType.NEOX),
             rope_scaling=scaling,
             qkv_bias=arch in ("qwen2", "qwen2moe", "starcoder2", "phi2"),

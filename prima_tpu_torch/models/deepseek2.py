@@ -16,10 +16,13 @@ As in the JAX package this is a correctness-tier runtime: every weight is
 dequantized on the host and held dense, the matmuls are `torch.matmul`
 (the JAX package leaves them to XLA and reaches no Pallas kernel), every
 token goes through every expert, and generation recomputes the whole
-prefix at each token. Dtypes promote as jnp promotes them: numpy f32
-scalars are strong in JAX, so with bf16 weights the residual stream turns
-f32 at the first residual add, and bf16 weights meet f32 activations in
-f32 matmuls.
+prefix at each token. The CLI runs minicpm3 GGUFs here; deepseek2 GGUFs
+are served by the decoder (models/llama.py: latent attention over a latent
+cache, the routed experts through the expert-indexed GEMV) under Engine in
+the CLI and the server; both take YaRN's constants from `ops.layers.yarn_params`.
+Dtypes promote as jnp promotes them: numpy f32 scalars are strong in JAX,
+so with bf16 weights the residual stream turns f32 at the first residual
+add, and bf16 weights meet f32 activations in f32 matmuls.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..gguf.reader import GGUFModel
-from ..ops.layers import _yarn_corr_dim, mm_t, rms_norm
+from ..ops.layers import mm_t, rms_norm, yarn_params
 from .family import dense_getter, open_runtime, tokens_tensor
 
 
@@ -163,41 +166,13 @@ def load_deepseek2_params(m: GGUFModel, cfg: DeepseekV2Config, dtype=torch.float
     return params
 
 
-def _yarn_ramp_np(low: float, high: float, dims: np.ndarray) -> np.ndarray:
-    y = (dims - low) / max(high - low, 1e-3)
-    return 1.0 - np.clip(y, 0.0, 1.0)
-
-
 def _rope_params(cfg: DeepseekV2Config) -> tuple[np.ndarray, float, float]:
-    """(inv_freq over rope dims, rope magnitude scale, kq_scale), computed on
-    the host in the same f32 numpy expressions as the JAX package, so the
-    frequencies agree to the last bit before they reach the device.
-
-    YaRN mirrors build_deepseek2 (src/llama.cpp:15456-15460): the attention
-    scale is pre-multiplied by mscale^2 (mscale uses the GGUF
-    yarn_log_multiplier) and rope runs with attn_factor_scaled =
-    1/(1 + 0.1*ln(1/freq_scale)), which cancels ggml rope_yarn's own
-    (1 + 0.1*ln(1/freq_scale)) magnitude factor.
-    """
-    d = cfg.qk_rope
-    half = d // 2
-    qk = cfg.qk_nope + cfg.qk_rope
-    inv = 1.0 / (cfg.rope_base ** (np.arange(half, dtype=np.float32) * 2.0 / d))
-    if cfg.rope_scaling != "yarn" or cfg.rope_factor <= 0:
-        return inv, 1.0, 1.0 / math.sqrt(qk)
-    freq_scale = 1.0 / cfg.rope_factor
-    mscale = cfg.rope_attn_factor * (1.0 + cfg.yarn_log_mul * math.log(1.0 / freq_scale))
-    kq_scale = mscale * mscale / math.sqrt(qk)
-    attn_factor_scaled = cfg.rope_attn_factor / (1.0 + 0.1 * math.log(1.0 / freq_scale))
-    orig = cfg.rope_orig_ctx or 4096
-    low = max(0.0, math.floor(_yarn_corr_dim(d, orig, cfg.beta_fast, cfg.rope_base)))
-    high = min(d / 2.0 - 1.0, math.ceil(_yarn_corr_dim(d, orig, cfg.beta_slow, cfg.rope_base)))
-    ramp = _yarn_ramp_np(low, high, np.arange(half, dtype=np.float32))
-    inv_yarn = inv * freq_scale * (1.0 - ramp) + inv * ramp
-    # net rope magnitude: ggml rope_yarn multiplies the passed attn_factor
-    # by (1 + 0.1*ln(1/freq_scale)) when ext_factor != 0
-    rope_mscale = attn_factor_scaled * (1.0 + 0.1 * math.log(1.0 / freq_scale))
-    return inv_yarn.astype(np.float32), float(rope_mscale), float(kq_scale)
+    """(inv_freq over rope dims, rope magnitude scale, kq_scale) of this
+    runtime's config: `ops.layers.yarn_params`, which the served decoder's
+    latent attention takes too (`ops.layers.mla_rope_params`)."""
+    return yarn_params(cfg.qk_rope, cfg.qk_nope + cfg.qk_rope, cfg.rope_base, cfg.rope_scaling,
+                       cfg.rope_factor, cfg.rope_attn_factor, cfg.yarn_log_mul,
+                       cfg.rope_orig_ctx, cfg.beta_fast, cfg.beta_slow)
 
 
 def _rope_interleaved(x: torch.Tensor, pos: torch.Tensor, inv: torch.Tensor,

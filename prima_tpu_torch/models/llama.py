@@ -7,7 +7,9 @@ KVQ8 / KVQ4) written in place (the JAX forward returns updated copies
 instead). Attention takes the plain `gqa_attention` or, with
 attn_impl="kernel", the flash kernels (not for softcap, sliding-window or
 ALiBi attention, which they do not compute). Mixture-of-experts layers run
-their experts through the expert-indexed GEMV at decode. LoRA adapters
+their experts through the expert-indexed GEMV at decode. deepseek2's
+latent attention (MLA) caches one normed latent and one roped key a cell
+and decodes in the absorbed form (`mla_attention`). LoRA adapters
 (`*_lora`, models/adapters.py) ride beside the quantized weights of the
 projections the JAX package adapts, and a control vector (`cvec`) is added
 after its layer.
@@ -26,15 +28,17 @@ import torch
 from ..gguf.constants import GGMLType, TYPE_TRAITS
 from ..gguf.reader import GGUFModel, TensorInfo
 from ..ops.attention import flash_attention
+from ..ops.kv_write import kv_write_plain
 from ..ops.kvquant import KVQ4, KVQ8, kv_seq_len, update_kv_pair, update_kv_sp
 from ..ops.layers import (alibi_mask, alibi_slopes, apply_rope, causal_mask, gated_act,
-                          gqa_attention, gqa_attention_sp, layer_norm, rms_norm,
-                          rope_freqs)
+                          gqa_attention, gqa_attention_sp, layer_norm, mla_rope_params,
+                          rms_norm, rope_freqs)
 from ..quant.dequant_np import dequantize_tensor
 from ..quant.device_format import SUPPORTED_TYPES, UQTensor, to_device_format
 from ..quant.qmatmul import MAX_B, qgemv_indexed_plain, qmatmul, qmatmul_indexed
-from ..quant.qtensor import QTensor, dequant_rows, qmatmul_plain, qtensor_from_raw
-from ..utils.perf import span
+from ..quant.qtensor import (QTensor, dequant, dequant_rows, dequant_slices, qmatmul_plain,
+                             qtensor_from_raw)
+from ..utils.perf import count, span
 from .adapters import lora_delta
 from .config import ModelConfig
 
@@ -238,6 +242,8 @@ def _load_layer(m: GGUFModel, cfg: ModelConfig, i: int, device, dtype, fuse: boo
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ln = cfg.norm_type != "rms"
     p = f"blk.{i}."
+    if cfg.kv_lora_rank:
+        return _load_mla_layer(m, cfg, i, device, dtype, fuse)
     layer = {
         # LN archs may omit norm weights (OLMo's non-parametric norm) or
         # the ffn_norm (command-r's parallel block)
@@ -271,10 +277,13 @@ def _load_layer(m: GGUFModel, cfg: ModelConfig, i: int, device, dtype, fuse: boo
         layer["ffn_gate_inp"] = get(p + "ffn_gate_inp.weight", dense=True)
         for key in ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"):
             layer[key] = _stack_experts(get(p + key + ".weight"), cfg.n_expert)
-        if (p + "ffn_gate_inp_shexp.weight") in t:  # qwen2moe's shared expert
-            layer["ffn_gate_inp_shexp"] = get(p + "ffn_gate_inp_shexp.weight", dense=True)
+        if (p + "ffn_gate_shexp.weight") in t:
+            # shared experts: qwen2moe's under a per-token sigmoid gate,
+            # deepseek2's ungated (its expert_shared_count of them as one FFN)
             for key in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"):
                 layer[key] = get(p + key + ".weight")
+            if (p + "ffn_gate_inp_shexp.weight") in t:
+                layer["ffn_gate_inp_shexp"] = get(p + "ffn_gate_inp_shexp.weight", dense=True)
         if cfg.moe_parallel_dense:  # arctic: a dense FFN beside the experts
             for key, name in (("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
                               ("w_down", "ffn_down")):
@@ -317,6 +326,47 @@ def _load_layer(m: GGUFModel, cfg: ModelConfig, i: int, device, dtype, fuse: boo
         layer["bk"] = get(p + "attn_k.bias", dense=True)
         layer["bv"] = get(p + "attn_v.bias", dense=True)
     _add_optional(layer, t, get, _OPTIONAL, p)
+    return layer
+
+
+def _load_mla_layer(m: GGUFModel, cfg: ModelConfig, i: int, device, dtype,
+                    fuse: bool) -> dict:
+    """Block i of a deepseek2 GGUF (llm_load_tensors' deepseek2 case): every
+    quantized weight under its GGUF name, as its own QTensor, and beside
+    them the dense key and value halves of attn_kv_b per head in `dtype`
+    (`mla_k_b` (h, qk_nope, kv_lora_rank), `mla_v_b` (h, v_head_dim,
+    kv_lora_rank)), which the absorbed attention multiplies; then the
+    layer's FFN: dense for the first n_dense_lead layers (llama's keys),
+    else the router, the stacked experts and the shared experts."""
+    t = m.tensors
+    get = _getter(t, dtype, device)
+    p = f"blk.{i}."
+    layer = {"attn_norm": get(p + "attn_norm.weight", dense=True),
+             "attn_kv_a_mqa": get(p + "attn_kv_a_mqa.weight"),
+             "attn_kv_a_norm": get(p + "attn_kv_a_norm.weight", dense=True),
+             "attn_kv_b": get(p + "attn_kv_b.weight"),
+             "attn_output": get(p + "attn_output.weight"),
+             "ffn_norm": get(p + "ffn_norm.weight", dense=True)}
+    if cfg.q_lora_rank:
+        layer["attn_q_a"] = get(p + "attn_q_a.weight")
+        layer["attn_q_a_norm"] = get(p + "attn_q_a_norm.weight", dense=True)
+        layer["attn_q_b"] = get(p + "attn_q_b.weight")
+    else:
+        layer["attn_q"] = get(p + "attn_q.weight")
+    kv_b = torch.from_numpy(dequantize_tensor(t[p + "attn_kv_b.weight"]).astype(np.float32))
+    kv_b = kv_b.reshape(cfg.n_heads, cfg.qk_nope + cfg.v_head_dim, cfg.kv_lora_rank)
+    layer["mla_k_b"] = kv_b[:, :cfg.qk_nope].contiguous().to(device=device, dtype=dtype)
+    layer["mla_v_b"] = kv_b[:, cfg.qk_nope:].contiguous().to(device=device, dtype=dtype)
+    if cfg.n_expert and (p + "ffn_gate_inp.weight") in t:
+        layer["ffn_gate_inp"] = get(p + "ffn_gate_inp.weight", dense=True)
+        for key in ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"):
+            layer[key] = _stack_experts(get(p + key + ".weight"), cfg.n_expert)
+        if (p + "ffn_gate_shexp.weight") in t:
+            for key in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"):
+                layer[key] = get(p + key + ".weight")
+    else:
+        for key, name in (("w_gate", "ffn_gate"), ("w_up", "ffn_up"), ("w_down", "ffn_down")):
+            layer[key] = get(p + name + ".weight")
     return layer
 
 
@@ -608,11 +658,12 @@ def _tp_sum(y: torch.Tensor, opts: ForwardOptions) -> torch.Tensor:
 
 def _flash_route(cfg: ModelConfig, opts: ForwardOptions) -> bool:
     """attn_impl "kernel" takes the flash kernels, except for the attention
-    variants they do not compute (as llama.py:962-963 of the JAX package)."""
+    variants they do not compute (as llama.py:962-963 of the JAX package),
+    latent attention among them."""
     if opts.attn_impl not in ("plain", "kernel"):
         raise ValueError(f"unknown attn_impl {opts.attn_impl!r}")
     return (opts.attn_impl == "kernel" and not cfg.attn_logit_softcap
-            and not cfg.swa_window and not cfg.alibi_max_bias)
+            and not cfg.swa_window and not cfg.alibi_max_bias and not cfg.kv_lora_rank)
 
 
 def model_norm(x: torch.Tensor, w, b, cfg: ModelConfig) -> torch.Tensor:
@@ -638,13 +689,20 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
                     mask: torch.Tensor | None, inv_freq: torch.Tensor, mscale: float,
                     opts: ForwardOptions, mask_pos: torch.Tensor | None = None,
                     heads: tuple[int, int] | None = None, taps: dict | None = None,
-                    tap_prefix: str = "") -> torch.Tensor:
+                    tap_prefix: str = "", kq_scale: float | None = None) -> torch.Tensor:
     """x (b, s, e) normed input. Writes this step's K/V into the caches in
     place and returns the attention output (b, s, e). Visibility follows
     mask_pos (the physical cache order) where given, else positions; the
     two differ only under Self-Extend. heads is a layer's own (h, kvh)
     (openelm). taps collects the inputs of the four projections (`_tap`),
-    under their GGUF names whether or not the layer fused Q/K/V."""
+    under their GGUF names whether or not the layer fused Q/K/V. A layer
+    of latent attention takes `mla_attention`, with YaRN's kq_scale
+    (`mla_rope_params`)."""
+    if cfg.kv_lora_rank:
+        if opts.tp_group is not None or opts.sp_group is not None:
+            raise NotImplementedError("latent attention under tensor or sequence parallelism")
+        return mla_attention(layer, cfg, x, positions, kv, cache_pos, mask, inv_freq, mscale,
+                             kq_scale, opts)
     b, s, _ = x.shape
     hd = cfg.head_dim
     h, kvh = heads if heads is not None else (cfg.n_heads, cfg.n_kv_heads)
@@ -710,6 +768,47 @@ def attention_block(layer: dict, cfg: ModelConfig, x: torch.Tensor,
     _tap(taps, tap_prefix + "attn_output.weight", out)
     out = _scaled(linear_l(layer, "wo", out, opts.matmul_impl), layer, "wo_scale")
     return _biased(_tp_sum(out, opts), layer, "bo")  # the bias once, after the sum
+
+
+def mla_attention(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                  kv: tuple, cache_pos: torch.Tensor, mask: torch.Tensor, inv_freq: torch.Tensor,
+                  mscale: float, kq_scale: float, opts: ForwardOptions) -> torch.Tensor:
+    """deepseek2's multi-head latent attention (build_deepseek2) over x
+    (b, s, e) normed. kv is the layer's latent cache as two views of one
+    (b, T, kv_lora_rank + rope_dim) tensor: the roped keys (b, T, 1,
+    rope_dim) and the normed latents (b, T, 1, kv_lora_rank); this step's
+    cells are written at cache_pos in place. The absorbed form: each head's
+    query dims without RoPE go through the key half of attn_kv_b into the
+    latent space (`mla_k_b`), its scores are that against every cached
+    latent plus its RoPE query against the shared RoPE key, times
+    `kq_scale`, under `mask`; the softmax weighs the latents, and the value
+    half of attn_kv_b (`mla_v_b`) takes the weighted latent to the head's
+    values before attn_output. Scores and softmax in f32. Decode and prefill
+    run the same form, so no cell is decompressed."""
+    b, s, _ = x.shape
+    h, nope, rope, r = cfg.n_heads, cfg.qk_nope, cfg.rope_dim, cfg.kv_lora_rank
+    impl = opts.matmul_impl
+    if layer.get("attn_q_a") is not None:  # DeepSeek-V2: queries through a LoRA bottleneck
+        qa = rms_norm(linear(x, layer["attn_q_a"], impl), layer["attn_q_a_norm"], cfg.rms_eps)
+        q = linear(qa, layer["attn_q_b"], impl)
+    else:
+        q = linear(x, layer["attn_q"], impl)
+    q_nope, q_pe = q.reshape(b, s, h, nope + rope).split([nope, rope], dim=-1)
+    c, k_pe = linear(x, layer["attn_kv_a_mqa"], impl).split([r, rope], dim=-1)
+    c = rms_norm(c, layer["attn_kv_a_norm"], cfg.rms_eps)
+    q_pe = apply_rope(q_pe, positions, inv_freq, cfg.rope_type, mscale)
+    k_pe = apply_rope(k_pe[:, :, None], positions, inv_freq, cfg.rope_type, mscale)
+    pe_cache, c_cache = kv
+    kv_write_plain(pe_cache, k_pe, cache_pos)
+    kv_write_plain(c_cache, c[:, :, None], cache_pos)
+    lat, pe = c_cache[:, :, 0], pe_cache[:, :, 0]  # (b, T, r), (b, T, rope)
+    q_lat = torch.einsum("bshd,hdr->bshr", q_nope, layer["mla_k_b"].to(q_nope.dtype))
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), lat.float())
+              + torch.einsum("bshd,btd->bhst", q_pe.float(), pe.float()))
+    probs = torch.softmax(scores * kq_scale + mask, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", probs.to(lat.dtype), lat)
+    out = torch.einsum("bshr,hvr->bshv", o_lat, layer["mla_v_b"].to(o_lat.dtype))
+    return linear(out.reshape(b, s, h * cfg.v_head_dim).to(x.dtype), layer["attn_output"], impl)
 
 
 def _tap(taps: dict | None, name: str, x: torch.Tensor) -> None:
@@ -809,49 +908,131 @@ def moe_ffn(layer: dict, cfg: ModelConfig, x: torch.Tensor,
             opts: ForwardOptions) -> torch.Tensor:
     """Mixture-of-experts FFN (prima_tpu/models/llama.py:1058-1108). The
     router runs in f32: softmax, top-k, normalized top-k weights unless
-    moe_norm_w is off (qwen2moe, olmoe). Fewer than MAX_B (row, expert)
-    pairs go through the expert-indexed GEMV, one launch a projection that
-    finds the experts among the ids on the device and reads each chosen
-    one once, summed in the reference's order (`moe_combine`); wider
-    inputs loop over every expert in index order with zero weight for the
-    rows that did not pick it, as the JAX package does."""
+    moe_norm_w is off (qwen2moe, olmoe, deepseek2), times deepseek2's
+    expert_weights_scale. Fewer than MAX_B (row, expert) pairs go through
+    the expert-indexed GEMV, one launch a projection that finds the experts
+    among the ids on the device and reads each chosen one once, summed in
+    the reference's order (`moe_combine`). One token a row (a decode step)
+    with more pairs takes the same GEMV over the pairs sorted by expert on
+    the device, a launch a projection for each MAX_B of them
+    (`_experts_chunked`). Wider prefill inputs loop over every expert in
+    index order with zero weight for the rows that did not pick it, as the
+    JAX package does. Then the shared experts: qwen2moe's under a sigmoid
+    gate, deepseek2's as they are.
+
+    The routed work is the span moe.experts (its pairs and launches); the
+    counters moe.calls, moe.dense_loops (the calls that took the all-expert
+    loop, prefill chunks alone), moe.indexed_launches and moe.pairs count
+    it, from the shapes alone."""
     b, s, e = x.shape
     k_used, n_exp = cfg.n_expert_used, cfg.n_expert
     probs = torch.softmax(linear(x, layer["ffn_gate_inp"], opts.matmul_impl).float(), -1)
     w, ids = torch.topk(probs, k_used, dim=-1)  # (b, s, k), descending
     if cfg.moe_norm_w:
         w = w / w.sum(-1, keepdim=True)
+    if cfg.expert_weights_scale != 1.0:
+        w = w * float(np.float32(cfg.expert_weights_scale))
     stacked = (layer["ffn_gate_exps"], layer["ffn_up_exps"], layer["ffn_down_exps"])
     rows = b * s
-    if rows * k_used < MAX_B:
-        xp = x.reshape(rows, e).repeat_interleave(k_used, dim=0)  # pair p: row p // k
-        idp = ids.reshape(-1).to(torch.int32)
-        # a row's k experts are distinct: one expert holds at most `rows` pairs
-        gate, up = (expert_linear(xp, t, idp, n_exp, opts.matmul_impl, rows)
-                    for t in stacked[:2])
-        y = expert_linear(gated_act(gate, up, cfg.act), stacked[2], idp, n_exp,
-                          opts.matmul_impl, rows).reshape(rows, k_used, e)
-        out = moe_combine(y, w.reshape(rows, k_used), ids.reshape(rows, k_used),
-                          x.dtype).reshape(b, s, e)
-    else:
-        per_expert = torch.where(
-            ids[..., None, :] == torch.arange(n_exp, device=x.device)[:, None],
-            w[..., None, :], 0.0).sum(-1)  # (b, s, n_expert)
-        out = torch.zeros_like(x)
-        for ei in range(n_exp):
-            ge, ue, de = (expert_rows(t, ei, n_exp) for t in stacked)
-            gate, up = (linear(x, t, opts.matmul_impl) for t in (ge, ue))
-            y = linear(gated_act(gate, up, cfg.act), de, opts.matmul_impl)
-            out = out + per_expert[..., ei:ei + 1].to(x.dtype) * y
-    if layer.get("ffn_gate_inp_shexp") is not None:
-        # qwen2moe's shared expert: a dense FFN under a per-token sigmoid gate
-        g = torch.sigmoid(linear(x, layer["ffn_gate_inp_shexp"], opts.matmul_impl).float())
+    pairs = rows * k_used
+    count("moe.calls")
+    count("moe.pairs", pairs)
+    with span("moe.experts") as sp:
+        if pairs < MAX_B:
+            xp = x.reshape(rows, e).repeat_interleave(k_used, dim=0)  # pair p: row p // k
+            idp = ids.reshape(-1).to(torch.int32)
+            # a row's k experts are distinct: one expert holds at most `rows` pairs
+            gate, up = (expert_linear(xp, t, idp, n_exp, opts.matmul_impl, rows)
+                        for t in stacked[:2])
+            y = expert_linear(gated_act(gate, up, cfg.act), stacked[2], idp, n_exp,
+                              opts.matmul_impl, rows).reshape(rows, k_used, e)
+            out = moe_combine(y, w.reshape(rows, k_used), ids.reshape(rows, k_used),
+                              x.dtype).reshape(b, s, e)
+            launches = 3
+        elif s == 1:
+            out, launches = _experts_chunked(x.reshape(rows, e), w.reshape(rows, k_used),
+                                             ids.reshape(rows, k_used), stacked, cfg, opts)
+            out = out.reshape(b, s, e)
+        else:
+            count("moe.dense_loops")
+            per_expert = torch.where(
+                ids[..., None, :] == torch.arange(n_exp, device=x.device)[:, None],
+                w[..., None, :], 0.0).sum(-1)  # (b, s, n_expert)
+            out = torch.zeros_like(x)
+            mm = _expert_matmuls(stacked, n_exp, x, opts)
+            for ei in range(n_exp):
+                gate, up = mm(0, ei, x), mm(1, ei, x)
+                y = mm(2, ei, gated_act(gate, up, cfg.act))
+                out = out + per_expert[..., ei:ei + 1].to(x.dtype) * y
+            launches = 0
+        count("moe.indexed_launches", launches)
+        if sp:
+            sp.set(pairs=pairs, launches=launches)
+    if layer.get("ffn_gate_shexp") is not None:
+        g = None
+        if layer.get("ffn_gate_inp_shexp") is not None:
+            # qwen2moe's shared expert: a dense FFN under a per-token sigmoid gate
+            g = torch.sigmoid(linear(x, layer["ffn_gate_inp_shexp"], opts.matmul_impl).float())
         sh_gate, sh_up = (linear(x, layer[n], opts.matmul_impl)
                           for n in ("ffn_gate_shexp", "ffn_up_shexp"))
         sh = linear(gated_act(sh_gate, sh_up, cfg.act), layer["ffn_down_shexp"],
                     opts.matmul_impl)
-        out = out + sh * g.to(x.dtype)
+        out = out + (sh if g is None else sh * g.to(x.dtype))
     return _tp_sum(out, opts)
+
+
+MOE_DEQUANT_WEIGHTS = 1 << 27  # weights a slice of the dense loop's dequantization
+
+
+def _expert_matmuls(stacked: tuple, n_exp: int, x: torch.Tensor, opts: ForwardOptions):
+    """mm(j, e, a): input a through expert e of stacked weight j, as
+    `linear` over `expert_rows` computes it. Where that is a dequantization
+    and one matmul (qmatmul at MAX_B rows or more, or the plain matmul),
+    each stacked QTensor is dequantized once for all its experts, in slices
+    of MOE_DEQUANT_WEIGHTS: the same elements and the same matmul on each
+    expert's rows, with one set of dequantizing ops a slice in place of
+    one an expert."""
+    rows = x.numel() // x.shape[-1]
+    if not ((opts.matmul_impl == "plain" or rows >= MAX_B)
+            and all(isinstance(t, QTensor) for t in stacked)):
+        return lambda j, e, a: linear(a, expert_rows(stacked[j], e, n_exp), opts.matmul_impl)
+    with dequant_slices(MOE_DEQUANT_WEIGHTS):
+        mats = [dequant(t, x.dtype) for t in stacked]
+
+    def mm(j: int, e: int, a: torch.Tensor) -> torch.Tensor:
+        n = mats[j].shape[0] // n_exp
+        return torch.matmul(a, mats[j][e * n:(e + 1) * n].t())
+    return mm
+
+
+def _experts_chunked(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor, stacked: tuple,
+                     cfg: ModelConfig, opts: ForwardOptions) -> tuple[torch.Tensor, int]:
+    """The routed experts of one token a row, x (R, E), through the
+    expert-indexed GEMV where the (row, expert) pairs are MAX_B or more:
+    the pairs sorted by expert on the device (so an expert's pairs lie in
+    one chunk, or two at a boundary), then each projection launched on
+    consecutive chunks of at most MAX_B pairs, an expert's pairs in a chunk
+    bounded by the rows and the chunk; the outputs put back in pair order
+    and summed as `moe_combine` sums them. Nothing is read on the host.
+    Returns (out (R, E) in x's dtype, the launches)."""
+    rows, k = ids.shape
+    idp = ids.reshape(-1)
+    order = torch.argsort(idp, stable=True)
+    sid = idp[order].to(torch.int32)
+    chunks = [(c0, min(c0 + MAX_B, rows * k)) for c0 in range(0, rows * k, MAX_B)]
+
+    def project(a: torch.Tensor, t) -> torch.Tensor:
+        # f32 rows in, so no launch casts them; the outputs rounded to x's
+        # dtype once, as expert_linear rounds each launch's
+        return torch.cat([expert_linear(a[c0:c1], t, sid[c0:c1], cfg.n_expert,
+                                        opts.matmul_impl, min(rows, c1 - c0))
+                          for c0, c1 in chunks]).to(x.dtype)
+
+    xp = x[order // k].float()
+    act = gated_act(project(xp, stacked[0]), project(xp, stacked[1]), cfg.act)
+    down = project(act.float(), stacked[2])
+    y = torch.empty_like(down).index_copy_(0, order, down)
+    return moe_combine(y.reshape(rows, k, -1), w, ids, x.dtype), 3 * len(chunks)
 
 
 def _experts(layer: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -866,7 +1047,8 @@ def _experts(layer: dict, cfg: ModelConfig, x: torch.Tensor,
 def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
                  cache_pos, mask, inv_freq, mscale, opts: ForwardOptions,
                  mask_pos=None, heads: tuple[int, int] | None = None,
-                 taps: dict | None = None, tap_prefix: str = "", index: int = 0):
+                 taps: dict | None = None, tap_prefix: str = "", index: int = 0,
+                 kq_scale: float | None = None):
     """One block (prima_tpu/models/llama.py:1111-1193): pre- or swin
     (post-) norms, sequential or parallel attention and FFN, post norms,
     the residual scale, the dense FFN or the experts (arctic: both), and
@@ -882,9 +1064,12 @@ def decode_layer(layer: dict, cfg: ModelConfig, x: torch.Tensor, positions, kv,
     with _span("fwd.attn") as sp:
         if sp:
             sp.set(layer=index)
+            if cfg.kv_lora_rank:
+                sp.set(kind="mla")
         attn_in = x if cfg.swin_norm else _norm(layer, cfg, x, "attn_norm")
         attn_out = attention_block(layer, cfg, attn_in, positions, kv, cache_pos, mask,
-                                   inv_freq, mscale, opts, mask_pos, heads, taps, tap_prefix)
+                                   inv_freq, mscale, opts, mask_pos, heads, taps, tap_prefix,
+                                   kq_scale)
     with _span("fwd.moe" if experts else "fwd.ffn") as sp:
         if sp:
             sp.set(layer=index)
@@ -1006,6 +1191,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
             raise ValueError(f"a window starting at layer {lo} needs hidden_in")
         x = hidden_in
     inv_freq, mscale = rope_freqs(cfg, x.device)
+    kq_scale = mla_rope_params(cfg)[2] if cfg.kv_lora_rank else None
     t_cache = kv_caches[lo][0].shape[1] if hi > lo else 0
     mpos = positions if mask_positions is None else mask_positions
     if attn_mask is not None and opts.attn_impl == "kernel":
@@ -1026,7 +1212,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor | None,
         m = mask_swa if mask_swa is not None and i % 2 == 0 else mask
         heads = layer_heads(cfg, i) if cfg.n_heads_arr else None
         x = decode_layer(layer, cfg, x, positions, kv_caches[i], cache_pos, m, inv_freq,
-                         mscale, opts, mask_positions, heads, taps, f"blk.{i}.", index=i)
+                         mscale, opts, mask_positions, heads, taps, f"blk.{i}.", index=i,
+                         kq_scale=kq_scale)
     if return_hidden or hi < cfg.n_layers:
         return x, kv_caches
     with _span("fwd.head"):
@@ -1058,7 +1245,10 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int,
     """Per-layer (k, v) zero buffers (batch, max_seq, kvh, head_dim), kvh
     the layer's own KV heads: dense tensors of a torch dtype, or KVQ8 /
     KVQ4 for "q8_0" / "q4_0". A layer for which layer_filter is False gets
-    None (a ring rank caches only its own windows)."""
+    None (a ring rank caches only its own windows). Latent attention
+    (deepseek2) caches a latent instead (`_init_latent_caches`)."""
+    if cfg.kv_lora_rank:
+        return _init_latent_caches(cfg, batch, max_seq, dtype, device, layer_filter)
     if isinstance(dtype, str):
         cls = {"q8_0": KVQ8, "q4_0": KVQ4}.get(dtype)
         if cls is None:
@@ -1073,4 +1263,26 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int,
             continue
         shape = (batch, max_seq, layer_heads(cfg, i)[1], cfg.head_dim)
         caches.append((make(shape), make(shape)))
+    return caches
+
+
+def _init_latent_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype, device,
+                        layer_filter) -> list:
+    """Latent attention's caches: per layer one (batch, max_seq,
+    kv_lora_rank + rope_dim) buffer of the normed latent and the roped key
+    of each cell, handed out as the pair (roped keys (batch, max_seq, 1,
+    rope_dim), latents (batch, max_seq, 1, kv_lora_rank)) of views: the
+    cache's sequence ops (runtime/kv.py) then re-rotate the keys alone and
+    move the latents as they are."""
+    if isinstance(dtype, str):
+        raise NotImplementedError(f"a {dtype} cache for latent attention ({cfg.arch}): "
+                                  "its latent cache is dense (f32 or bf16)")
+    r = cfg.kv_lora_rank
+    caches = []
+    for i in range(cfg.n_layers):
+        if layer_filter is not None and not layer_filter(i):
+            caches.append(None)
+            continue
+        buf = torch.zeros((batch, max_seq, r + cfg.rope_dim), dtype=dtype, device=device)
+        caches.append((buf[:, :, None, r:], buf[:, :, None, :r]))
     return caches

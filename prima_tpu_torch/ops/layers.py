@@ -9,8 +9,10 @@ as the JAX functions do.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from ..models.config import ModelConfig, RopeType
@@ -48,6 +50,54 @@ def _yarn_corr_dim(n_dims: int, n_ctx_orig: int, n_rot: float, base: float) -> f
     return n_dims * math.log(n_ctx_orig / (n_rot * 2 * math.pi)) / (2 * math.log(base))
 
 
+def _yarn_ramp_np(low: float, high: float, dims: np.ndarray) -> np.ndarray:
+    y = (dims - low) / max(high - low, 1e-3)
+    return 1.0 - np.clip(y, 0.0, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def yarn_params(d: int, qk: int, base: float, scaling: str, factor: float,
+                attn_factor: float, log_mul: float, orig_ctx: int, beta_fast: float,
+                beta_slow: float) -> tuple[np.ndarray, float, float]:
+    """(inv_freq over the d rope dims, rope magnitude scale, kq_scale) for
+    query / key heads of qk dims, computed on the host in the same f32
+    numpy expressions as the JAX package, so the frequencies agree to the
+    last bit before they reach the device. Cached: callers must not write
+    into the array.
+
+    YaRN mirrors build_deepseek2 (src/llama.cpp:15456-15460): the attention
+    scale is pre-multiplied by mscale^2 (mscale uses the GGUF
+    yarn_log_multiplier) and rope runs with attn_factor_scaled =
+    1/(1 + 0.1*ln(1/freq_scale)), which cancels ggml rope_yarn's own
+    (1 + 0.1*ln(1/freq_scale)) magnitude factor.
+    """
+    half = d // 2
+    inv = 1.0 / (base ** (np.arange(half, dtype=np.float32) * 2.0 / d))
+    if scaling != "yarn" or factor <= 0:
+        return inv, 1.0, 1.0 / math.sqrt(qk)
+    freq_scale = 1.0 / factor
+    mscale = attn_factor * (1.0 + log_mul * math.log(1.0 / freq_scale))
+    kq_scale = mscale * mscale / math.sqrt(qk)
+    attn_factor_scaled = attn_factor / (1.0 + 0.1 * math.log(1.0 / freq_scale))
+    orig = orig_ctx or 4096
+    low = max(0.0, math.floor(_yarn_corr_dim(d, orig, beta_fast, base)))
+    high = min(d / 2.0 - 1.0, math.ceil(_yarn_corr_dim(d, orig, beta_slow, base)))
+    ramp = _yarn_ramp_np(low, high, np.arange(half, dtype=np.float32))
+    inv_yarn = inv * freq_scale * (1.0 - ramp) + inv * ramp
+    # net rope magnitude: ggml rope_yarn multiplies the passed attn_factor
+    # by (1 + 0.1*ln(1/freq_scale)) when ext_factor != 0
+    rope_mscale = attn_factor_scaled * (1.0 + 0.1 * math.log(1.0 / freq_scale))
+    return inv_yarn.astype(np.float32), float(rope_mscale), float(kq_scale)
+
+
+def mla_rope_params(cfg: ModelConfig) -> tuple[np.ndarray, float, float]:
+    """`yarn_params` of a decoder config of latent attention (deepseek2):
+    the constants models/deepseek2.py's runtime takes for the same GGUF."""
+    s = cfg.rope_scaling
+    return yarn_params(cfg.rope_dim, cfg.head_dim, cfg.rope_base, s.kind, s.factor,
+                       s.attn_factor, cfg.yarn_log_mul, s.orig_ctx, s.beta_fast, s.beta_slow)
+
+
 _rope_cache: dict = {}  # (RoPE parameters, device) -> (inv_freq, mscale)
 
 
@@ -59,7 +109,8 @@ def rope_freqs(cfg: ModelConfig, device=None) -> tuple[torch.Tensor, float]:
     decode step can be captured as a CUDA graph."""
     s = cfg.rope_scaling
     key = (cfg.rope_dim, cfg.rope_base, cfg.n_ctx_train, s.kind, s.factor, s.orig_ctx,
-           s.ext_factor, s.attn_factor, s.beta_fast, s.beta_slow,
+           s.ext_factor, s.attn_factor, s.beta_fast, s.beta_slow, cfg.kv_lora_rank,
+           cfg.head_dim, cfg.yarn_log_mul,
            torch.device("cpu") if device is None else torch.device(device))
     got = _rope_cache.get(key)
     if got is None:
@@ -68,6 +119,10 @@ def rope_freqs(cfg: ModelConfig, device=None) -> tuple[torch.Tensor, float]:
 
 
 def _rope_freqs(cfg: ModelConfig, device) -> tuple[torch.Tensor, float]:
+    if cfg.kv_lora_rank:
+        # latent attention (deepseek2): build_deepseek2's YaRN
+        inv, mscale, _ = mla_rope_params(cfg)
+        return torch.from_numpy(inv.copy()).to(device), mscale
     half = cfg.rope_dim // 2
     base = cfg.rope_base
     exps = torch.arange(0, half, dtype=torch.float32, device=device) * 2.0 / cfg.rope_dim

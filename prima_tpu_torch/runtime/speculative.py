@@ -57,6 +57,9 @@ class SpeculativeDecoder:
     def __init__(self, target, draft: Engine, n_draft: int = 8, p_min: float = 0.75):
         if target.n_slots < 1 or draft.n_slots < 1:
             raise ValueError("target and draft need a slot each")
+        if any(getattr(getattr(e, "cfg", None), "kv_lora_rank", 0) for e in (target, draft)):
+            raise NotImplementedError("speculative decoding with a latent attention "
+                                      "(deepseek2) model")
         self.target = target
         self.draft = draft
         self.n_draft = n_draft

@@ -46,8 +46,17 @@ def _is_pipe(engine) -> bool:
     return isinstance(engine.kv, PipeKV)
 
 
+def _refuse_latent(engine) -> None:
+    """A latent attention cache (deepseek2) has no K / V rows of the
+    format's shape: its slots are not saved or restored."""
+    if engine.cfg.kv_lora_rank:
+        raise NotImplementedError(f"slot save / restore of a latent attention cache "
+                                  f"({engine.cfg.arch})")
+
+
 def slot_save(engine, slot_id: int, path: str) -> int:
     """Save one slot's sequence state; returns the tokens saved."""
+    _refuse_latent(engine)
     used = engine.kv.used(slot_id)
     slot = engine.slots[slot_id]
     tokens = list(slot.prompt + slot.generated)
@@ -72,6 +81,7 @@ def slot_save(engine, slot_id: int, path: str) -> int:
 
 def slot_restore(engine, slot_id: int, path: str) -> int:
     """Restore a saved sequence into a slot; returns the tokens restored."""
+    _refuse_latent(engine)
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         if meta.get("magic") != STATE_MAGIC:

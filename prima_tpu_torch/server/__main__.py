@@ -163,8 +163,14 @@ def main(argv=None) -> int:
     print(f"loading {args.model} ...", file=sys.stderr)
     # bert and nomic-bert serve embeddings; jina-bert-v2 falls through to
     # the decoder loader, as in the JAX server
-    if probe_gguf(args) in ("bert", "nomic-bert"):
+    arch = probe_gguf(args)
+    if arch in ("bert", "nomic-bert"):
         return _embeddings_main(args)
+    if arch == "deepseek2" and (args.world > 1 or args.pp * args.tp * args.dp > 1):
+        # latent attention runs on the single-device Engine only
+        print("deepseek2 serves on one device: no ring (-w) or mesh (--pp / --tp / --dp)",
+              file=sys.stderr)
+        return 2
     what = _unported(args)
     if what is not None:
         print(f"{what} is not yet ported to prima_tpu_torch", file=sys.stderr)

@@ -17,9 +17,11 @@ by hand (else every rank profiles its device and rank 0 solves them), -k
 the cycles, -ngl the resident layers of each window (the rest stream from
 host memory; on one process -ngl runs the one-rank ring).
 
-deepseek2 / minicpm3, t5 and rwkv6 GGUFs run one-shot on their own
-runtimes (greedy, the prefix recomputed or the state carried), mamba too,
-sampled at --temp > 0; as in the JAX CLI, -cnv runs them one-shot.
+minicpm3, t5 and rwkv6 GGUFs run one-shot on their own runtimes (greedy,
+the prefix recomputed or the state carried), mamba too, sampled at
+--temp > 0; as in the JAX CLI, -cnv runs them one-shot. deepseek2 GGUFs
+run through Engine like the decoder archs (the JAX CLI keeps them on its
+recompute runtime).
 """
 
 from __future__ import annotations
@@ -213,7 +215,7 @@ def _read_prompt(args) -> str:
 
 def _run_family(args, arch: str) -> int:
     """One-shot generation on a family runtime of its own: greedy on the
-    correctness-tier runtimes (deepseek2 / minicpm3, t5, rwkv6; -n defaults
+    correctness-tier runtimes (minicpm3, t5, rwkv6; -n defaults
     to 64), and for mamba the recurrent decode (-n defaults to 128), sampled
     through the host sampler at --temp > 0."""
     prompt = _read_prompt(args)
@@ -261,7 +263,7 @@ def main(argv=None) -> int:
     probe = GGUFModel.open(args.model)
     probe_arch = probe.arch
     probe.close()
-    if probe_arch in ("deepseek2", "minicpm3", "t5", "rwkv6", "mamba"):
+    if probe_arch in ("minicpm3", "t5", "rwkv6", "mamba"):
         if args.conversation:
             print(f"warning: -cnv is not supported on the {probe_arch} "
                   "correctness-tier runtime; running one-shot", file=sys.stderr)

@@ -373,8 +373,13 @@ def test_plan_steps_and_boundary_calls_on_a_fake_backend(moe, monkeypatch):
             runs[name] = (_per_step(eng, calls, 4), dict(rec.counts))
         monkeypatch.undo()
     (graph_steps, graph_counts), (eager_steps, eager_counts) = runs["graph"], runs["eager"]
-    assert graph_counts == {"decode.graph_steps": 4}
-    assert eager_counts == {"decode.eager_steps": 4}
+    part = lambda counts, kind: {k: v for k, v in counts.items() if k.startswith(kind)}
+    assert part(graph_counts, "decode.") == {"decode.graph_steps": 4}
+    assert part(eager_counts, "decode.") == {"decode.eager_steps": 4}
+    # moe_ffn runs whole on every step, graphed or not: its counters agree
+    assert part(graph_counts, "moe.") == part(eager_counts, "moe.")
+    assert set(graph_counts) == set(part(graph_counts, "decode.")) | set(
+        part(graph_counts, "moe."))
     for (g, g_ids), (e, e_ids) in zip(graph_steps, eager_steps):
         assert g == e and len(g_ids) == len(e_ids)
         assert g["qgemv"] == (4 if moe else 7) * cfg.n_layers + 1

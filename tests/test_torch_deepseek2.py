@@ -169,11 +169,41 @@ def test_params_from_numpy_carries_jax_params(files, dtype):
         assert torch.equal(narrowed["tok_embd"], params["tok_embd"].to(torch.bfloat16))
 
 
+def _streamed(tok, ids: list) -> str:
+    """Token ids as the port's CLI streams them: bytes that do not yet
+    close a UTF-8 character wait for the next token, and are dropped at
+    the end."""
+    buf, out = b"", ""
+    for t in ids:
+        buf += tok.decode_token_bytes(t)
+        try:
+            out, buf = out + buf.decode("utf-8"), b""
+        except UnicodeDecodeError:
+            continue
+    return out
+
+
 @pytest.mark.parametrize("name", ["ds2", "minicpm3"])
 def test_cli_prints_jax_text(files, name, capsys):
+    """minicpm3 runs on the recompute runtime in both CLIs: the same text.
+    The port's CLI serves deepseek2 through Engine, streaming its text,
+    where the JAX CLI runs its recompute runtime: both greedy, the port
+    prints the JAX runtime's tokens as it streams them."""
     args = ["-m", files[name], "-p", "hello there", "-n", "8"]
-    assert jcli(args) == 0
-    want = capsys.readouterr().out
+    if name == "ds2":
+        from prima_tpu_torch.gguf.reader import GGUFModel as PortGGUFModel
+        from prima_tpu_torch.tokenizer import Tokenizer
+
+        jrt, _ = _pair(files[name])
+        m = PortGGUFModel.open(files[name])
+        tok = Tokenizer.from_gguf(m)
+        m.close()
+        ids = tok.encode("hello there", add_special=True, parse_special=True)
+        want = "hello there" + _streamed(tok, jrt.generate(ids, n_predict=8)) + "\n"
+        args += ["--temp", "0"]  # the JAX runtime is greedy whatever --temp says
+    else:
+        assert jcli(args) == 0
+        want = capsys.readouterr().out
     assert cli(args + ["--device", "cpu"]) == 0
     got = capsys.readouterr().out
     assert got == want and got.startswith("hello there") and len(got) > len("hello there")

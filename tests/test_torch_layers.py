@@ -153,9 +153,13 @@ def test_gated_act(act):
 
 
 def test_config_copy_is_the_same_dataclass_shape():
-    """The port's ModelConfig copy carries the JAX package's fields."""
+    """The port's ModelConfig copy carries the JAX package's fields, then
+    those of latent attention (deepseek2), which the port's decoder serves
+    and the JAX package's does not."""
     from prima_tpu.models.config import ModelConfig as JModelConfig
     from prima_tpu_torch.models.config import ModelConfig
 
     assert ([f.name for f in dataclasses.fields(ModelConfig)]
-            == [f.name for f in dataclasses.fields(JModelConfig)])
+            == [f.name for f in dataclasses.fields(JModelConfig)]
+            + ["kv_lora_rank", "q_lora_rank", "v_head_dim", "n_dense_lead", "n_expert_shared",
+               "n_ff_exp", "expert_weights_scale", "yarn_log_mul"])
